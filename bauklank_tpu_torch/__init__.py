@@ -3,14 +3,17 @@
 The package mirrors ``bauklank_tpu``'s layout (``engine/``, ``ops/``,
 ``serve/``, ``schedule/``, ``utils/``) so each ported module sits at the
 same path as its JAX counterpart, which stays in the repository as the
-reference it is tested against.  Plain tensor code is PyTorch; the four
-kernels of the blob-exact serving step are CUDA C++ for Hopper
-(``csrc/*.cu``), built at first use and bound with ``ctypes``
-(``kernels/``).  A CPU tensor takes each kernel's plain PyTorch version.
+reference it is tested against.  Plain tensor code is PyTorch; the five
+kernels of the two engines are CUDA C++ for Hopper (``csrc/*.cu``), built
+at first use and bound with ``ctypes`` (``kernels/``).  A CPU tensor
+takes each kernel's plain PyTorch version.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 
-Ported so far: the fidelity serving step
-(:func:`engine.fidelity.batched_fidelity_chunk`) and the pool around it
-(:class:`serve.pool.StreamPool` with ``engine="fidelity"``).
+Ported so far: the fast engine (:func:`engine.core.process_chunk`,
+:func:`engine.batched.batched_process_chunk`,
+:func:`engine.offline.stretch_offline`), the fidelity serving step
+(:func:`engine.fidelity.batched_fidelity_chunk`), and the pool around
+both (:class:`serve.pool.StreamPool`, ``engine="fast"`` by default).
 """
 
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_cheaper, preset_default

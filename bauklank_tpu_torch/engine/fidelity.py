@@ -41,6 +41,7 @@ from bauklank_tpu_torch.engine.spectral import (
 from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.ops import framing, mdft
 from bauklank_tpu_torch.ops.mdft import unit_phase
+from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = [
     "SpectralConfig",
@@ -301,14 +302,16 @@ def render_fidelity(
     seed: int = 1,
     split_computation: bool = True,
     hops_per_chunk: int = 8,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> np.ndarray:
     """Render ``n_out`` frames of one stream in the serving form: the
     stream runs through :func:`batched_fidelity_chunk` chunk by chunk
     with carried state (the hop count padded to whole chunks).  Same
     arguments and semantics as the reference harness'
     ``native.render_reference`` (formant controls are not ported yet).
+    It runs on ``device``, the card unless the caller passes another.
     audio [C, T] float32 -> [C, n_out] float32."""
+    device = resolve_device(device)
     sr = float(sample_rate)
     cfg = SpectralConfig(channels=audio.shape[0], block=round(block_ms / 1000 * sr),
                          interval=round(interval_ms / 1000 * sr), split=split_computation)

@@ -35,6 +35,7 @@ from bauklank_tpu_torch.kernels.bandchain import band_chain
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
 from bauklank_tpu_torch.ops.gather import frac_gather
 from bauklank_tpu_torch.ops.mdft import unit_phase
+from bauklank_tpu_torch.ops.scan import associative_scan
 
 __all__ = [
     "EPS",
@@ -212,32 +213,13 @@ def _minstd_steps(seq: torch.Tensor, time_factor: torch.Tensor):
 # ------------------------------------------------------- smoothing (scan)
 def _affine_scan(a: torch.Tensor, b: torch.Tensor):
     """Inclusive scan of y_k = a_k y_{k-1} + b_k along the last axis, in
-    JAX's ``lax.associative_scan`` odd/even recursion (the same combine
-    tree, so the same roundings) with compose((a1, b1), (a2, b2)) =
-    (a1 a2, a2 b1 + b2)."""
-    n = a.shape[-1]
-    if n < 2:
-        return a, b
-    ra = a[..., 0:-1:2] * a[..., 1::2]
-    rb = a[..., 1::2] * b[..., 0:-1:2] + b[..., 1::2]
-    oa, ob = _affine_scan(ra, rb)
-    if n % 2 == 0:
-        pa, pb = oa[..., :-1], ob[..., :-1]
-    else:
-        pa, pb = oa, ob
-    a2, b2 = a[..., 2::2], b[..., 2::2]
-    ea = torch.cat([a[..., :1], pa * a2], dim=-1)
-    eb = torch.cat([b[..., :1], a2 * pb + b2], dim=-1)
-    return _interleave(ea, oa), _interleave(eb, ob)
+    JAX's ``lax.associative_scan`` order (the same combine tree, so the
+    same roundings) with compose((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)."""
+    def compose(x, y):
+        (a1, b1), (a2, b2) = x, y
+        return [a1 * a2, a2 * b1 + b2]
 
-
-def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
-    """out[0::2] = even, out[1::2] = odd (len(even) - len(odd) in {0, 1})."""
-    k = odd.shape[-1]
-    pairs = torch.stack([even[..., :k], odd], dim=-1).reshape(odd.shape[:-1] + (2 * k,))
-    if even.shape[-1] > k:
-        pairs = torch.cat([pairs, even[..., k:]], dim=-1)
-    return pairs
+    return tuple(associative_scan(compose, [a, b], dim=-1))
 
 
 def _smooth_bidirectional(e: torch.Tensor, coef: float, carry: torch.Tensor):

@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the fidelity step, with their wrappers.
+"""Hand-written Hopper kernels of both engines, with their wrappers.
 
 Each kernel module holds the wrapper (``frames_windowed``,
-``comp_cumsum``, ``frac_gather``, ``band_chain``) and its plain PyTorch
+``comp_cumsum``, ``frac_gather``, ``band_chain`` for the fidelity step;
+``frames_windowed`` and ``banded_interp`` for the fast one) and its plain PyTorch
 version (``*_ref``, same signature).  A wrapper checks its operands,
 sends a CPU tensor to the plain version, and launches the CUDA kernel on
 a CUDA tensor, raising on any launch error; it never falls back.
@@ -15,7 +16,8 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "on_cuda", "stream_of", "require"]
 
-LAUNCHES = {"frames_windowed": 0, "comp_cumsum": 0, "frac_gather": 0, "band_chain": 0}
+LAUNCHES = {"frames_windowed": 0, "comp_cumsum": 0, "frac_gather": 0, "band_chain": 0,
+            "banded_interp": 0}
 
 
 def reset_launches() -> None:

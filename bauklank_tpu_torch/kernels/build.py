@@ -41,6 +41,7 @@ SIGNATURES = {
     "bk_comp_cumsum": (_P, _P, _P, _I, _I, _I, _P),
     "bk_frac_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
     "bk_band_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "bk_banded_interp": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["mdft", "imdft", "cmul", "unit_phase"]
+__all__ = ["mdft", "imdft", "cmul", "cabs", "unit_phase"]
 
 
 @functools.lru_cache(maxsize=1)
@@ -89,6 +89,23 @@ def cmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     bd = (b * d).float().double()
     ad = (a * d).float().double()
     return torch.complex((a * c - bd).float(), (b * c + ad).float())
+
+
+def cabs(z: torch.Tensor) -> torch.Tensor:
+    """|z| of a complex tensor.  On the CPU it rounds as XLA's CPU backend
+    does, max(|a|, |b|) * sqrt(1 + r^2) with r = min / max and the
+    multiply-add fused and the square root correctly rounded (both
+    evaluated in float64; PyTorch's float32 CPU square root is not always
+    correctly rounded).  ``torch.abs`` (a correctly rounded hypot) differs
+    from it by one ulp in about a third of the values.  On the GPU it is
+    ``torch.abs``, as :func:`cmul` is the plain product there."""
+    if z.device.type != "cpu":
+        return torch.abs(z)
+    a, b = z.real.abs(), z.imag.abs()
+    mx, mn = torch.maximum(a, b), torch.minimum(a, b)
+    r = (mn / mx).double()
+    mag = mx * torch.sqrt((r * r + 1.0).float().double()).float()
+    return torch.where(mx == 0, 0.0, mag)
 
 
 def mdft(x: torch.Tensor) -> torch.Tensor:

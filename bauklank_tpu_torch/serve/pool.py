@@ -1,8 +1,10 @@
 """StreamPool: many voices, one batched device step per pool step.
 
-Port of ``bauklank_tpu/serve/pool.py`` for ``engine="fidelity"``: all
-voices share one engine configuration, one device step and one mixdown;
-per-voice rate/pitch state is data.  Control semantics mirror the
+Port of ``bauklank_tpu/serve/pool.py`` for both engines: ``"fast"`` (the
+default; the hop-parallel engine of ``engine/core.py``) and
+``"fidelity"`` (the blob-exact core).  All voices share one engine
+configuration, one device step and one mixdown; per-voice rate/pitch
+state is data.  Control semantics mirror the
 reference app's ``applyIncomingSet``: control keys route into each
 voice's time map with a look-ahead (0.1 s); volume/pan ramp linearly
 over the step; clamps follow the reference (rate [1e-5, 2], semitones
@@ -21,7 +23,13 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from bauklank_tpu_torch.engine.batched import (
+    batched_process_chunk,
+    formants_off,
+    init_batched_state,
+)
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_default
 from bauklank_tpu_torch.engine.fidelity import (
     SpectralConfig,
@@ -31,6 +39,7 @@ from bauklank_tpu_torch.engine.fidelity import (
 from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.engine.spectral import FORMANTS_TODO
 from bauklank_tpu_torch.schedule.timemap import TimeMap
+from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from bauklank_tpu_torch.utils.metrics import StepTimer
 
 __all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS"]
@@ -84,11 +93,21 @@ def _mixdown(out, gains, pans):
                         torch.sum(mono * g * pan_r, dim=0)])
 
 
-def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed):
-    """One pool step from the packed ``[S, H + 11]`` array: [:H] frame
-    ends, [H:H+7] StretchParams fields, [H+7:H+9] gain (start, end),
-    [H+9:H+11] pan (start, end).  Returns (states, master [2, n],
+def _pool_step(config: StretchConfig, states, audios, packed):
+    """One fast-engine pool step from the packed ``[S, H + 11]`` array:
+    [:H] frame ends, [H:H+7] StretchParams fields, [H+7:H+9] gain (start,
+    end), [H+9:H+11] pan (start, end).  Returns (states, master [2, n],
     streams [S, C, n])."""
+    h = packed.shape[1] - 11
+    ends = packed[:, :h].to(torch.int32)
+    params = StretchParams.unpack(packed, h)
+    states, out = batched_process_chunk(config, states, audios, ends, params)
+    return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
+
+
+def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed):
+    """One fidelity pool step from the same packed layout as
+    :func:`_pool_step`."""
     h = packed.shape[1] - 11
     ends = packed[:, :h].to(torch.int32)
     params = StretchParams.unpack(packed, h)
@@ -104,8 +123,10 @@ def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed):
 class StreamPool:
     """Fixed-capacity batched voice pool on one device.
 
-    Slots are named (defaults "s00"..., or pass ``names``).  Only the
-    fidelity engine is ported."""
+    Slots are named (defaults "s00"..., or pass ``names``).  ``engine``:
+    "fast" (hop-parallel, ``engine/core.py``) or "fidelity" (blob-exact,
+    ``engine/spectral.py``; formant controls not ported yet).  It runs on
+    ``device``, the card unless the caller passes another."""
 
     def __init__(
         self,
@@ -116,28 +137,26 @@ class StreamPool:
         max_track_sec: float = 30.0,
         names: list[str] | None = None,
         hops_per_step: int = 1,
-        engine: str = "fidelity",
+        engine: str = "fast",
         max_rate: float = 2.0,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ) -> None:
-        if engine == "fast":
-            raise NotImplementedError(
-                "the fast engine is not ported yet (ROADMAP queue 1 item 8)")
-        if engine != "fidelity":
+        if engine not in ("fast", "fidelity"):
             raise ValueError(f"unknown engine {engine!r}")
         self.engine = engine
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.clamps = dict(CONTROL_CLAMPS)
         self.clamps["rate"] = (CONTROL_CLAMPS["rate"][0], float(max_rate))
         self.sample_rate = float(sample_rate)
         self.config = config or preset_default(channels, sample_rate)
-        # a given StretchConfig has its block already rounded onto the FFT
-        # grid (engine/config.py); taken as it is, for parity with the JAX
-        # pool (ROADMAP "Faults found")
-        block = round(sample_rate * 0.12) if config is None else config.block
-        interval = round(sample_rate * 0.03) if config is None else config.interval
-        self.scfg = SpectralConfig(channels, block, interval,
-                                   split=self.config.split_computation)
+        if engine == "fidelity":
+            # a given StretchConfig has its block already rounded onto the
+            # FFT grid (engine/config.py); taken as it is, for parity with
+            # the JAX pool (ROADMAP "Faults found")
+            block = round(sample_rate * 0.12) if config is None else config.block
+            interval = round(sample_rate * 0.03) if config is None else config.interval
+            self.scfg = SpectralConfig(channels, block, interval,
+                                       split=self.config.split_computation)
         self.capacity = capacity
         self.hops_per_step = hops_per_step
         self.max_track = int(max_track_sec * sample_rate)
@@ -152,7 +171,7 @@ class StreamPool:
         self._by_name = {s.name: i for i, s in enumerate(self.slots)}
         self._audio_host = np.zeros((capacity, channels, self.max_track), np.float32)
         self._audio_dev: torch.Tensor | None = None
-        self.states = init_batched_fidelity_state(self.scfg, capacity, self.device)
+        self.states = self._init_states(capacity)
         self.out_pos = 0  # output samples stepped so far
         self.timer = StepTimer(sample_rate)
 
@@ -177,6 +196,18 @@ class StreamPool:
         self.slots[i].loaded = False
         self._audio_dev = None
 
+    # -------------------------------------------------- slot lifecycle
+    def _init_states(self, n: int):
+        if self.engine == "fidelity":
+            return init_batched_fidelity_state(self.scfg, n, self.device)
+        return init_batched_state(self.config, n, self.device)
+
+    def _leaves(self, states) -> tuple:
+        if self.engine == "fidelity":
+            spec, tail = states
+            return (*spec, tail)
+        return tuple(states)
+
     def clear_voice(self, slot: str) -> None:
         """Fully reset one voice (engine state, audio, time map, mix) so its
         batch row can be reused."""
@@ -184,9 +215,7 @@ class StreamPool:
         self._audio_host[i] = 0.0
         self._audio_dev = None
         self.slots[i] = VoiceSlot(slot)
-        spec, tail = self.states
-        one_spec, one_tail = init_batched_fidelity_state(self.scfg, 1, self.device)
-        for leaf, fresh in zip((*spec, tail), (*one_spec, one_tail)):
+        for leaf, fresh in zip(self._leaves(self.states), self._leaves(self._init_states(1))):
             leaf[i] = fresh[0]
 
     def _device_audio(self) -> torch.Tensor:
@@ -197,9 +226,12 @@ class StreamPool:
     # ------------------------------------------------------------- control
     @property
     def _sizes(self):
-        """(block, interval, output_latency) of the fidelity engine."""
-        b, i = self.scfg.block, self.scfg.interval
-        return b, i, (b - b // 2) + (i if self.scfg.split else 0)
+        """(block, interval, output_latency) of the pool's engine."""
+        if self.engine == "fidelity":
+            b, i = self.scfg.block, self.scfg.interval
+            return b, i, (b - b // 2) + (i if self.scfg.split else 0)
+        c = self.config
+        return c.block, c.interval, c.output_latency
 
     @property
     def output_time(self) -> float:
@@ -264,17 +296,19 @@ class StreamPool:
 
     # --------------------------------------------------------------- step
     def _packed(self) -> np.ndarray:
-        """Host side of a step: each voice's hop frame ends (the worklet
-        drive samples inputTime at the hop's output-counter position),
-        params and mix ramps, in one [S, H + 11] float32 array."""
+        """Host side of a step: each voice's hop frame ends, params and mix
+        ramps, in one [S, H + 11] float32 array.  The fidelity engine's
+        worklet drive samples inputTime at the hop's output-counter
+        position, the fast engine at the output frame's centre."""
         sr = self.sample_rate
         h = self.hops_per_step
         block, interval, out_lat = self._sizes
+        centre = 0 if self.engine == "fidelity" else block // 2
         packed = np.zeros((self.capacity, h + 11), np.float32)
         for i, s in enumerate(self.slots):
             seg = None
             for k in range(h):
-                out_t = (self.out_pos + k * interval) / sr + out_lat / sr
+                out_t = (self.out_pos + k * interval + centre) / sr + out_lat / sr
                 in_t = s.timemap.input_time_at(out_t)
                 packed[i, k] = float(int(round(in_t * sr)) + block // 2)
                 seg = s.timemap.current()
@@ -304,12 +338,24 @@ class StreamPool:
                 'fetch="pipeline" is not ported yet (ROADMAP queue 1, pool slice)')
         self.timer.start()
         h = self.hops_per_step
-        packed = self._packed()
-        if np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0):
-            raise NotImplementedError(FORMANTS_TODO)
-        self.states, master, streams = _pool_step_fidelity(
-            self.scfg, self.states, self._device_audio(),
-            torch.from_numpy(packed).to(self.device))
+        with record_function("pool.pack"):
+            packed = self._packed()
+        formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
+        dev_packed = torch.from_numpy(packed).to(self.device)
+        if self.engine == "fidelity":
+            if formants:
+                raise NotImplementedError(FORMANTS_TODO)
+            self.states, master, streams = _pool_step_fidelity(
+                self.scfg, self.states, self._device_audio(), dev_packed)
+        else:
+            # host-side formant gating: when no voice uses formant controls
+            # this step, run the step without the formant chain (same state;
+            # the reference engine gates the same way)
+            cfg = self.config
+            if cfg.formants and not formants:
+                cfg = formants_off(cfg)
+            self.states, master, streams = _pool_step(
+                cfg, self.states, self._device_audio(), dev_packed)
         self.out_pos += h * self._sizes[1]
         self._last_streams = streams
         if fetch:

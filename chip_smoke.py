@@ -6,21 +6,28 @@
 Phases (any failure raises and exits non-zero without the result line):
 
 1. device: the card's name and power limit, TF32 off;
-2. build the four CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
+2. build the five CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, on operands
-   captured from one step of the preset serving pool (S=128, H=8,
-   120/30 ms) and of the kiosk pool (S=64, H=4, 200/200 ms, rate 0.001),
-   with both times;
-4. each stage of the step on the card against the same stage on the host
-   CPU, fed the same inputs (the CPU path is the one the tests hold
-   against the JAX package): the MDFT within a relative bound, every
-   stage's output >= 80 dB SNR;
-5. three golden cases rendered on the card through the serving form,
-   each > 40 dB against the blob renders in tests/golden/golden_v1.npz;
-6. serving: the 128-voice preset pool and the 64-voice kiosk pool driven
-   through ``StreamPool`` (tracks, starts, ``set`` messages through
+   captured from one step of the fidelity preset serving pool (S=128,
+   H=8, 120/30 ms), of the fidelity kiosk pool (S=64, H=4, 200/200 ms,
+   rate 0.001) and of the fast preset pool (S=128, H=32, 120/30 ms; the
+   envelope gathers from a step with one formant voice), with both times,
+   the least time the card could take (``bound``) and, where one PyTorch
+   call computes the same function, that call's time;
+4. each stage of both engines' steps on the card against the same stage
+   on the host CPU, fed the same inputs (the CPU path is the one the
+   tests hold against the JAX package): the MDFT within a relative bound,
+   every stage's output >= 80 dB SNR (a formant voice's gain >= 45 dB),
+   and the fast engine's whole 3-chunk render;
+5. three golden cases rendered on the card through the fidelity serving
+   form, each > 40 dB against the blob renders in
+   tests/golden/golden_v1.npz, and a fast-engine identity render
+   (``stretch_offline``, rate 1, 0 st) > 50 dB against its input;
+6. serving: the two fidelity pools and the fast pool driven through
+   ``StreamPool`` (tracks, starts, ``set`` messages through
    ``protocol.parse_line`` and ``apply_set``), 2 warm-up and 10 timed
-   steps each, with every kernel launch counted;
+   steps each, the launch counts set to 0 before each pool and read after
+   it; then 5 fast steps with a formant voice;
 7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
    pool, split by the step's stages (host and device time each) and
    the card's busy share.
@@ -51,23 +58,54 @@ TOLERANCE = 0.0   # every kernel is held bit-equal to its plain version
 PARITY_DB = 80.0
 PARITY_MC = 0.999  # share of (hop, stream, band) with the same leader channel
 MDFT_REL = 1e-5    # max |card - cpu| / max |cpu| of one MDFT, float32 FFTs
-# the step's record_function ranges, with the kernels each launches (the
-# profiler does not link a kernel launched through ctypes to its range)
-STAGES = {"fidelity.analyse": ("frames_windowed",),
-          "fidelity.chain_inputs": ("comp_cumsum", "frac_gather"),
-          "fidelity.hop_loop": ("band_chain",),
-          "fidelity.synthesis": ()}
-KERNELS = {
-    # name: (source, the TPU kernel's pl.pallas_call it replaces)
-    "frames_windowed": ("bauklank_tpu_torch/csrc/frames.cu",
-                        "bauklank_tpu/ops/pallas/frames.py:122"),
-    "comp_cumsum": ("bauklank_tpu_torch/csrc/compsum.cu",
-                    "bauklank_tpu/ops/pallas/compsum.py:103"),
-    "frac_gather": ("bauklank_tpu_torch/csrc/frac_gather.cu",
-                    "bauklank_tpu/ops/pallas/wintaps.py:129"),
-    "band_chain": ("bauklank_tpu_torch/csrc/bandchain.cu",
-                   "bauklank_tpu/ops/pallas/bandchain.py:149"),
+# a formant voice's gain is the square root of a ratio of envelope values;
+# the envelope comes out of an FFT, whose rounding floor sits ~1e-7 below
+# its peak, so the ratio of two small values moves by percent (the card's
+# formulas run on the CPU stay above this gate:
+# tests/test_torch_fast_engine.py::test_card_arithmetic_within_chip_smoke_gates)
+FORMANT_PARITY_DB = 45.0
+# each engine's record_function ranges (the pool's host-side packing of
+# the step's controls, then the step's stages), with the kernels each launches
+# (the profiler does not link a kernel launched through ctypes to its range)
+STAGES = {
+    "fidelity": {"pool.pack": (),
+                 "fidelity.analyse": ("frames_windowed",),
+                 "fidelity.chain_inputs": ("comp_cumsum", "frac_gather"),
+                 "fidelity.hop_loop": ("band_chain",),
+                 "fidelity.synthesis": ()},
+    "fast": {"pool.pack": (),
+             "fast.analyse": ("frames_windowed",),
+             "fast.hop_factors": ("banded_interp",),
+             "fast.rotation_scan": (),
+             "fast.synthesis": ()},
 }
+KERNELS = {
+    # name: (source, the TPU kernel's pl.pallas_call it replaces, the pool
+    # whose first captured operands the result line reports)
+    "frames_windowed": ("bauklank_tpu_torch/csrc/frames.cu",
+                        "bauklank_tpu/ops/pallas/frames.py:122", "preset"),
+    "comp_cumsum": ("bauklank_tpu_torch/csrc/compsum.cu",
+                    "bauklank_tpu/ops/pallas/compsum.py:103", "preset"),
+    "frac_gather": ("bauklank_tpu_torch/csrc/frac_gather.cu",
+                    "bauklank_tpu/ops/pallas/wintaps.py:129", "preset"),
+    "band_chain": ("bauklank_tpu_torch/csrc/bandchain.cu",
+                   "bauklank_tpu/ops/pallas/bandchain.py:149", "preset"),
+    "banded_interp": ("bauklank_tpu_torch/csrc/interp.cu",
+                      "bauklank_tpu/ops/pallas/interp.py:110", "fast"),
+}
+# the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
+# float32 outside the tensor cores, which none of the kernels use
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per output, counted from each plain version
+# (band_chain: per band and stream, 26 for the leader plus 25 a channel)
+OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
+                  "banded_interp": 3}
+# the dependent float32 operations one step of a chain waits on (one
+# band of the band chain, one TwoSum of the compensated sum), each at
+# least the 4-cycle latency of a float32 add or multiply
+CHAIN_DEPTH = {"band_chain": 19, "comp_cumsum": 7}
+DEP_CYCLES = 4
 
 
 def log(*a):
@@ -79,6 +117,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def max_sm_mhz() -> float:
+    """The card's highest SM clock, MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -98,20 +144,27 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 
 
 @contextlib.contextmanager
-def capture_operands(store: dict):
+def capture_operands(store: dict, engine: str):
     """Record the first operands each kernel wrapper gets on the main path
-    (the engine modules hold the wrappers by name; frac_gather keeps its
-    first two call shapes: the five-family and the prev|energy gather)."""
-    from bauklank_tpu_torch.engine import fidelity, spectral
+    (the engine modules hold the wrappers by name).  frac_gather keeps its
+    first two call shapes (the five-family and the prev|energy gather),
+    banded_interp its first three (the spectra, and with formants on the
+    natural and the target envelope)."""
+    from bauklank_tpu_torch.engine import core, fidelity, spectral
+    from bauklank_tpu_torch.ops import pitchmap
 
-    sites = [(fidelity, "frames_windowed"), (spectral, "comp_cumsum"),
-             (spectral, "frac_gather"), (spectral, "band_chain")]
+    if engine == "fidelity":
+        sites = [(fidelity, "frames_windowed"), (spectral, "comp_cumsum"),
+                 (spectral, "frac_gather"), (spectral, "band_chain")]
+    else:
+        sites = [(core, "frames_windowed"), (pitchmap, "banded_interp")]
+    keep = {"frac_gather": 2, "banded_interp": 3}
     saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
 
     def recorder(name, fn):
         def call(*args):
             calls = store.setdefault(name, [])
-            if len(calls) < (2 if name == "frac_gather" else 1):
+            if len(calls) < keep.get(name, 1):
                 calls.append(tuple(a.clone() if hasattr(a, "clone") else a for a in args))
             return fn(*args)
         return call
@@ -126,10 +179,11 @@ def capture_operands(store: dict):
 
 
 def make_pool(kind: str, device: str):
-    """The preset serving pool (S=128, H=8, 120/30 ms) or the kiosk pool
-    (S=64, H=4, StretchConfig(8820, 8820) as the unified pool builds it),
-    with tonal tracks loaded, voices started and a few ``set`` messages
-    applied."""
+    """The fidelity preset serving pool (S=128, H=8, 120/30 ms), the
+    fidelity kiosk pool (S=64, H=4, StretchConfig(8820, 8820) as the
+    unified pool builds it) or the fast preset pool (S=128, H=32,
+    120/30 ms, bench.py's fast shape), with tonal tracks loaded, voices
+    started and a few ``set`` messages applied."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from golden_wasm import material
 
@@ -137,8 +191,11 @@ def make_pool(kind: str, device: str):
     from bauklank_tpu_torch.serve import protocol
     from bauklank_tpu_torch.serve.pool import StreamPool
 
-    if kind == "preset":
-        pool = StreamPool(capacity=128, hops_per_step=8, engine="fidelity", device=device)
+    if kind in ("preset", "fast"):
+        if kind == "preset":
+            pool = StreamPool(capacity=128, hops_per_step=8, engine="fidelity", device=device)
+        else:
+            pool = StreamPool(capacity=128, hops_per_step=32, engine="fast", device=device)
         rates = np.linspace(0.5, 2.0, 128)
         tones = np.linspace(-12.0, 12.0, 128)[np.random.default_rng(0).permutation(128)]
     else:
@@ -164,23 +221,112 @@ def make_pool(kind: str, device: str):
     return pool
 
 
-def compare_kernels(ops: dict, tag: str, results: dict) -> None:
-    """Each captured kernel call against its plain version on the card."""
+def _taps_needed(pos, bins: int) -> int:
+    """Distinct (row, input band) pairs that linear interpolation at
+    ``pos`` [N, K] reads: floor(p) and floor(p) + 1 inside [0, bins)."""
+    import torch
+
+    i0 = torch.floor(pos).to(torch.int64)
+    taps = torch.cat([i0, i0 + 1], dim=1)
+    taps = torch.where((taps >= 0) & (taps < bins), taps, bins)
+    mask = torch.zeros((pos.shape[0], bins + 1), dtype=torch.bool, device=pos.device)
+    mask.scatter_(1, taps, True)
+    return int(mask[:, :bins].sum())
+
+
+def _samples_needed(starts, block: int, t_n: int) -> int:
+    """Distinct samples of each stream inside [0, t_n) that frames of
+    ``block`` samples at ``starts`` [S, F] cover."""
+    import torch
+
+    lo = torch.sort(starts.to(torch.int64), dim=1).values
+    hi = (lo + block).clamp(0, t_n)
+    lo = lo.clamp(0, t_n)
+    covered = torch.cat([torch.zeros_like(hi[:, :1]), torch.cummax(hi, dim=1).values[:, :-1]], 1)
+    return int((hi - torch.maximum(lo, covered)).clamp_min(0).sum())
+
+
+def bound(name: str, args) -> tuple[float, str, int, int]:
+    """(bound_ms, bound_by, bytes, operations): the least time the card
+    could take for this call, the larger of its bytes over the memory rate
+    and its float32 operations over the float32 rate.  Bytes count each
+    input element the function needs once (for a gather, the taps these
+    positions address; for the frame fetch, the samples these frames
+    cover) and each output once."""
+    if name == "frames_windowed":
+        audio, starts, window = args
+        s_n, c_n, t_n = audio.shape
+        out = s_n * starts.shape[1] * c_n * window.shape[0]
+        need = _samples_needed(starts, window.shape[0], t_n) * c_n + starts.numel() + window.numel()
+    elif name == "comp_cumsum":
+        out = 2 * args[0].numel()
+        need = args[0].numel()
+    elif name == "frac_gather":
+        planes, pos = args
+        out = pos.numel() * planes.shape[2]
+        need = _taps_needed(pos, planes.shape[1]) * planes.shape[2] + pos.numel()
+    elif name == "banded_interp":
+        x, pos = args[0], args[1]
+        out = pos.numel() * x.shape[1]
+        need = _taps_needed(pos, x.shape[2]) * x.shape[1] + pos.numel()
+    else:  # band_chain
+        lead, chan = args[0], args[1]
+        out = chan.shape[0] * 2 * lead.shape[1] * lead.shape[2]
+        need = lead.numel() + chan.numel()
+    if name == "band_chain":
+        ops = lead.shape[1] * lead.shape[2] * (26 + 25 * chan.shape[0])
+    else:
+        ops = OPS_PER_OUTPUT[name] * (args[0].numel() if name == "comp_cumsum" else out)
+    nbytes = 4 * (need + out)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def library_call(name: str, args):
+    """One PyTorch call computing the same function, or None: for the two
+    linear-interpolation gathers, ``grid_sample`` along one axis (bilinear
+    on a height-1 image, zeros outside, ``align_corners=True`` so that
+    grid -1..1 spans bands 0..bins-1).  Timed beside the kernel, used
+    nowhere in the port.  Returns (call, to the kernel's layout)."""
+    import torch
+    import torch.nn.functional as F
+
+    if name == "banded_interp":
+        img, pos = args[0][:, :, None, :], args[1]                       # [S, P, 1, bins]
+        layout = lambda y: y[:, :, 0]
+    elif name == "frac_gather":
+        img, pos = args[0].permute(0, 2, 1)[:, :, None, :], args[1]       # [N, P, 1, B]
+        layout = lambda y: y[:, :, 0].transpose(1, 2)
+    else:
+        return None
+    gx = pos * (2.0 / (img.shape[-1] - 1)) - 1.0
+    grid = torch.stack([gx, torch.zeros_like(gx)], dim=-1)[:, None]    # [N, 1, K, 2]
+    return (lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                  align_corners=True)), layout
+
+
+def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
+    """Each captured kernel call against its plain version on the card,
+    with its time, its plain version's, its bound and, where there is
+    one, the library call's."""
     import torch
 
     from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
     from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
     from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
     from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref
+    from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
 
     pairs = {
         "frames_windowed": (frames_windowed, frames_windowed_ref),
         "comp_cumsum": (comp_cumsum, comp_cumsum_ref),
         "frac_gather": (frac_gather, frac_gather_ref),
         "band_chain": (band_chain, band_chain_ref),
+        "banded_interp": (banded_interp, banded_interp_ref),
     }
-    for name, (kern, ref) in pairs.items():
-        for j, args in enumerate(ops[name]):
+    for name, calls in ops.items():
+        kern, ref = pairs[name]
+        for j, args in enumerate(calls):
             got, want = kern(*args), ref(*args)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -190,13 +336,35 @@ def compare_kernels(ops: dict, tag: str, results: dict) -> None:
             ms = cuda_ms(lambda: kern(*args), reps=20, warm=2)
             plain_reps = 2 if name in ("band_chain", "comp_cumsum") else 10
             plain_ms = cuda_ms(lambda: ref(*args), reps=plain_reps, warm=1)
+            bound_ms, bound_by, nbytes, nops = bound(name, args)
+            if name in CHAIN_DEPTH:
+                # a chain's operations wait on each other: its operations
+                # bound is the dependent chain's latency where that is longer
+                steps = args[0].shape[1]
+                chain_ms = steps * CHAIN_DEPTH[name] * DEP_CYCLES / (mhz * 1e3)
+                log(f"[bound] {tag} {name}#{j}: dependent chain {steps} steps x "
+                    f"{CHAIN_DEPTH[name]} ops x {DEP_CYCLES} cycles at {mhz:.0f} MHz = "
+                    f"{chain_ms:.4f} ms")
+                if chain_ms > bound_ms:
+                    bound_ms, bound_by = chain_ms, "operations"
+            lib = library_call(name, args)
+            lib_ms, lib_note = None, ""
+            if lib is not None:
+                call, layout = lib
+                lib_err = float((layout(call()) - got[0]).abs().max() / got[0].abs().max())
+                lib_ms = cuda_ms(call, reps=10, warm=1)
+                lib_note = f", grid_sample {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
             shapes = " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
             log(f"[kernel] {tag} {name}#{j} {shapes}: max_abs_err={err!r} "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_note}; bound {bound_ms:.4f} ms "
+                f"by {bound_by} ({nbytes / 1e6:.1f} MB, {nops / 1e6:.1f} Mop; "
+                f"{bound_ms / ms:.1%} of it reached)")
             if not finite or err > TOLERANCE:
                 raise AssertionError(f"{name} ({tag}) disagrees with its plain version: {err}")
-            if tag == "preset" and j == 0:
-                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            if tag == KERNELS[name][2] and j == 0:
+                results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": lib_ms}
 
 
 def _snr(ref, got) -> float:
@@ -296,6 +464,110 @@ def device_parity() -> None:
                                  f"{bad}, mc {mc_same}, rng {rng_same}")
 
 
+def fast_parity() -> None:
+    """Each stage of the fast engine's chunk on the card against the same
+    stage on the host CPU, both fed the CPU's inputs to that stage: four
+    streams (rates 0.5, 1.3, 2.0, 0.8; -12, 0, +7, +12 st; the last
+    inactive) from a mid-stream state, in the small test geometry and the
+    preset one; formants off (the serving pool's usual step), then on
+    with one formant voice.  The rotation factors and gains are weighted
+    by the magnitude they multiply in the output (a silent band's phase is
+    rounding noise on either device and reaches no output).  Then the
+    whole 3-chunk render, each device fed its own state."""
+    import torch
+
+    from golden_wasm import material
+
+    from bauklank_tpu_torch.engine import core
+    from bauklank_tpu_torch.engine.batched import batched_process_chunk, formants_off
+    from bauklank_tpu_torch.engine.config import StretchConfig, preset_default
+    from bauklank_tpu_torch.engine.offline import frame_ends_for
+    from bauklank_tpu_torch.engine.params import StretchParams
+
+    rates, tones, active = (0.5, 1.3, 2.0, 0.8), (-12.0, 0.0, 7.0, 12.0), (1.0, 1.0, 1.0, 0.0)
+    src = material.case_input(2.0, 2, seconds=8.0)
+    audio = torch.from_numpy(np.stack([np.roll(src, 977 * i, axis=-1)
+                                       for i in range(len(rates))]).astype(np.float32))
+    g_audio = audio.cuda()
+    for tag, cfg, h in (("small", StretchConfig(2, 1024, 256), 8),
+                        ("preset", preset_default(2, SR), 16)):
+        for formant_voice in (False, True):
+            run_cfg = cfg if formant_voice else formants_off(cfg)
+            extra = {"formant_semitones": 3.0, "formant_compensation": 1.0}
+            params = StretchParams.stack([
+                StretchParams.make(active=a, rate=r, semitones=st, device="cpu",
+                                   **(extra if formant_voice and i == 1 else {}))
+                for i, (r, st, a) in enumerate(zip(rates, tones, active))])
+            g_params = StretchParams(*[f.cuda() for f in params])
+            ends = [torch.from_numpy(np.stack([
+                frame_ends_for(cfg, c * h * cfg.interval, h, r) for r in rates]).astype(np.int32))
+                for c in range(4)]
+            state, _ = batched_process_chunk(  # a mid-stream state: one chunk on the CPU
+                run_cfg, core.fresh_state(run_cfg, len(rates), "cpu"), audio, ends[0], params)
+            g_state = core.StretchState(*[x.cuda() for x in state])
+
+            snr = {"1 analyses": _snr(core.analyse(run_cfg, audio, ends[1]),
+                                      core.analyse(run_cfg, g_audio, ends[1].cuda()))}
+            v, cur_m, gain, reset = core.hop_factors(run_cfg, audio, ends[1], params, state.prev_cur)
+            g = core.hop_factors(run_cfg, g_audio, ends[1].cuda(), g_params, g_state.prev_cur)
+            mag = torch.sqrt(torch.sum(torch.square(torch.abs(cur_m)), dim=1))   # [S, H, bins]
+            snr["2 hop_factors cur_m"] = _snr(cur_m, g[1])
+            snr["2 hop_factors v"] = _snr(v * mag, g[0].cpu() * mag)
+            snr["2 hop_factors gain"] = _snr(gain[:, 0] * mag, g[2][:, 0].cpu() * mag)
+            reset_same = bool(torch.equal(reset, g[3].cpu()))
+            rot = core.rotation_scan(state.rot, v, reset)
+            snr["3 rotation_scan"] = _snr(rot, core.rotation_scan(g_state.rot, v.cuda(), reset.cuda()))
+            emit, tail = core.synthesis(run_cfg, rot, cur_m, gain, state.ola_tail, params.active)
+            g_emit, g_tail = core.synthesis(run_cfg, rot.cuda(), cur_m.cuda(), gain.cuda(),
+                                            g_state.ola_tail, g_params.active)
+            snr["4 synthesis"] = min(_snr(emit, g_emit), _snr(tail, g_tail))
+            outs, g_outs = [], []
+            for c in (1, 2, 3):
+                state, out = batched_process_chunk(run_cfg, state, audio, ends[c], params)
+                g_state, g_out = batched_process_chunk(run_cfg, g_state, g_audio, ends[c].cuda(),
+                                                       g_params)
+                outs.append(out)
+                g_outs.append(g_out)
+            render = _snr(torch.cat(outs, -1), torch.cat(g_outs, -1))
+            label = "formant voice" if formant_voice else "formants off"
+            log(f"[parity] fast {tag} {label} (block {cfg.block}, interval {cfg.interval}, "
+                f"S={len(rates)}, H={h}) card vs cpu, stage by stage: "
+                + "; ".join(f"{k} {v_:.2f} dB" for k, v_ in snr.items())
+                + f"; reset equal {reset_same}; 3-chunk render {render:.2f} dB "
+                f"(bounds {PARITY_DB} dB, a formant voice's gain and render {FORMANT_PARITY_DB} dB)")
+            loose = ("2 hop_factors gain",) if formant_voice else ()
+            bad = {k: v_ for k, v_ in snr.items()
+                   if not v_ >= (FORMANT_PARITY_DB if k in loose else PARITY_DB)}
+            if not render >= (FORMANT_PARITY_DB if formant_voice else PARITY_DB):
+                bad["render"] = render
+            if bad or not reset_same:
+                raise AssertionError(f"fast {tag} {label}: the card's stages disagree with the "
+                                     f"CPU's: {bad}, reset equal {reset_same}")
+
+
+def identity_render(card: str) -> None:
+    """The fast engine's offline renderer on the card at rate 1, 0 st, the
+    preset geometry: > 50 dB against its input (tests/test_engine.py's bar)."""
+    from golden_wasm import material
+
+    from bauklank_tpu_torch.engine.config import preset_default
+    from bauklank_tpu_torch.engine.offline import stretch_offline
+
+    cfg = preset_default(2, SR)
+    x = material.case_input(1.0, 2, seconds=4.0)
+    t0 = time.perf_counter()
+    y = stretch_offline(x, 1.0, cfg, device="cuda")
+    b = cfg.block
+    n = min(x.shape[1], y.shape[1]) - b
+    ref, got = x[:, b:n].astype(np.float64), y[:, b:n].astype(np.float64)
+    snr = 10 * np.log10(np.sum(ref ** 2) / max(np.sum((ref - got) ** 2), 1e-300))
+    log(f"[identity] fast stretch_offline rate 1, 0 st, block {cfg.block}, interval "
+        f"{cfg.interval}, {x.shape[1] / SR:.1f} s stereo: {snr:.2f} dB against the input "
+        f"({time.perf_counter() - t0:.2f} s) | {card}")
+    if not snr > 50.0:
+        raise AssertionError(f"identity render {snr:.2f} dB <= 50 dB")
+
+
 def step_pool(pool, warm: int, timed: int):
     import torch
 
@@ -313,7 +585,7 @@ def step_pool(pool, warm: int, timed: int):
     return dt, float(np.abs(master).max())
 
 
-def where_time_goes(pool, steps: int, step_ms: float, card: str) -> None:
+def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> None:
     """Profile ``steps`` pool steps: the card's busy share, each stage's
     host and device time (the engine's ``record_function`` ranges), and
     the kernels that take most device time."""
@@ -333,14 +605,13 @@ def where_time_goes(pool, steps: int, step_ms: float, card: str) -> None:
     busy = sum(e.self_device_time_total for e in dev_events) / steps / 1e3
     if not busy > 0:
         raise AssertionError("the profiler saw no device time")
-    kind = "preset" if pool.capacity == 128 else "kiosk"
     log(f"[profile] {kind}: device busy {busy:.3f} ms/step; profiled wall {wall:.3f} ms/step "
         f"({busy / wall:.1%} busy); unprofiled step {step_ms:.3f} ms "
         f"({busy / step_ms:.1%} busy) | {card}")
     per_kernel: dict = {}
     for e in dev_events:
         per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.self_device_time_total
-    for name, own in STAGES.items():
+    for name, own in STAGES[pool.engine].items():
         rows = [e for e in events
                 if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
         host = sum(e.cpu_time_total for e in rows) / steps / 1e3
@@ -354,6 +625,33 @@ def where_time_goes(pool, steps: int, step_ms: float, card: str) -> None:
             f"({us / steps / 1e3 / busy:.1%}) {name[:90]}")
 
 
+def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict) -> float:
+    """Drive one pool with the launch counts set to 0 just before and read
+    just after; fails if a kernel of the pool's path was never launched.
+    Adds the counts to ``launches`` and returns ms/step."""
+    from bauklank_tpu_torch import kernels
+
+    kernels.reset_launches()
+    dt, peak = step_pool(pool, warm, timed)
+    counts = dict(kernels.LAUNCHES)
+    own = {k for ks in STAGES[pool.engine].values() for k in ks}
+    missing = sorted(k for k in own if counts[k] == 0)
+    if missing:
+        raise AssertionError(f"{kind} pool never launched {missing}")
+    for k, v in counts.items():
+        launches[k] += v
+    s_n, h = pool.capacity, pool.hops_per_step
+    block, interval, _ = pool._sizes
+    rtf = s_n * h * interval / SR / dt
+    shape = (f"fft={pool.scfg.fft} L={pool.scfg.long_step}" if pool.engine == "fidelity"
+             else f"bands={block // 2}")
+    log(f"[serve] {kind} ({pool.engine}): S={s_n} H={h} block={block} interval={interval} "
+        f"{shape}: {dt * 1e3:.2f} ms/step, aggregate RTF {rtf:.1f}x, master peak {peak:.4f}, "
+        f"launches {counts} | {card}")
+    log(f"[serve] {kind} metrics {pool.metrics()}")
+    return dt * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -364,11 +662,14 @@ def main() -> int:
     from bauklank_tpu_torch.kernels import build
 
     # 1. device
+    t_start = time.perf_counter()
     card = card_line()
+    mhz = max_sm_mhz()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-        f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log(f"[device] {card} | max SM clock {mhz:.0f} MHz | torch {torch.__version__} "
+        f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)} "
+        f"x{torch.cuda.device_count()}")
 
     # 2. build
     t0 = time.perf_counter()
@@ -382,20 +683,32 @@ def main() -> int:
 
     # 3. kernels against their plain versions, on main-path operands
     results: dict = {}
-    for kind in ("preset", "kiosk"):
+    for kind in ("preset", "kiosk", "fast"):
         ops: dict = {}
         pool = make_pool(kind, "cuda")
-        with capture_operands(ops):
+        with capture_operands(ops, pool.engine):
             pool.step(fetch=True)
-        compare_kernels(ops, kind, results)
+        compare_kernels(ops, kind, results, mhz)
+        if kind == "fast":
+            # the envelope gathers: a step with one formant voice
+            ops = {}
+            if not pool.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
+                raise RuntimeError("formant control refused")
+            with capture_operands(ops, "fast"):
+                pool.step(fetch=True)
+            if len(ops["banded_interp"]) != 3:
+                raise AssertionError(f"formant step gathered {len(ops['banded_interp'])} times")
+            compare_kernels({"banded_interp": ops["banded_interp"][1:]}, "fast-formant",
+                            results, mhz)
         del pool, ops
         torch.cuda.empty_cache()
 
-    # 4. each stage of the step on the card against the host CPU's
+    # 4. each stage of both steps on the card against the host CPU's
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     device_parity()
+    fast_parity()
 
-    # 5. golden cases on the card
+    # 5. golden cases and the identity render on the card
     from golden_wasm import material
 
     from bauklank_tpu_torch.engine.fidelity import render_fidelity
@@ -413,39 +726,44 @@ def main() -> int:
         log(f"[golden] {name}: {snr:.2f} dB ({time.perf_counter() - t1:.2f} s)")
         if not snr > 40.0:
             raise AssertionError(f"golden {name}: {snr:.2f} dB <= 40 dB")
+    identity_render(card)
 
-    # 6. serving: the main path, with the launch counts
-    pools = [(make_pool("preset", "cuda"), 2, 10), (make_pool("kiosk", "cuda"), 2, 10)]
+    # 6. serving: each pool's main path, with its launch counts
+    pools = {kind: make_pool(kind, "cuda") for kind in ("preset", "kiosk", "fast")}
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    step_ms = {kind: serve(kind, pool, 2, 10, card, launches) for kind, pool in pools.items()}
+    # the fast pool with a formant voice: three gathers a step
+    fast = pools["fast"]
+    if not fast.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
+        raise RuntimeError("formant control refused")
     kernels.reset_launches()
-    seen = dict(kernels.LAUNCHES)
-    step_ms = []
-    for pool, warm, timed in pools:
-        dt, peak = step_pool(pool, warm, timed)
-        step_ms.append(dt * 1e3)
-        counts = {k: v - seen[k] for k, v in kernels.LAUNCHES.items()}
-        seen = dict(kernels.LAUNCHES)
-        kind = "preset" if pool.capacity == 128 else "kiosk"
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            raise AssertionError(f"{kind} pool never launched {missing}")
-        s_n, h, interval = pool.capacity, pool.hops_per_step, pool.scfg.interval
-        rtf = s_n * h * interval / SR / dt
-        log(f"[serve] {kind}: S={s_n} H={h} block={pool.scfg.block} interval={interval} "
-            f"fft={pool.scfg.fft} L={pool.scfg.long_step}: {dt * 1e3:.2f} ms/step, "
-            f"aggregate RTF {rtf:.1f}x, master peak {peak:.4f}, launches {counts} | {card}")
-        log(f"[serve] {kind} metrics {pool.metrics()}")
-    launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    masters = [fast.step(fetch=True)[0] for _ in range(5)]
+    dt = (time.perf_counter() - t0) / 5
+    counts = dict(kernels.LAUNCHES)
+    if not np.isfinite(np.concatenate(masters, axis=-1)).all():
+        raise AssertionError("non-finite master with a formant voice")
+    if counts["banded_interp"] != 15 or counts["frames_windowed"] != 5:
+        raise AssertionError(f"formant steps launched {counts}, not 3 gathers a step")
+    for k, v in counts.items():
+        launches[k] += v
+    log(f"[serve] fast with a formant voice: {dt * 1e3:.2f} ms/step over 5 steps, "
+        f"launches {counts} | {card}")
+    # back to no formant voice before the profile
+    fast.apply_set("s05", "formantSemitones", 0.0, lookahead=0.0)
+    fast.step(fetch=True)
 
     # 7. where the time goes
-    for (pool, _, _), ms in zip(pools, step_ms):
-        where_time_goes(pool, 5, ms, card)
-    del pools
+    for kind, pool in pools.items():
+        where_time_goes(kind, pool, 5, step_ms[kind], card)
+    del pools, fast
     torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name]}
-        for name, (src, rep) in KERNELS.items()]}))
+        for name, (src, rep, _) in KERNELS.items()]}))
+    log(f"[time] {time.perf_counter() - t_start:.1f} s from the device check to the result")
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,7 +41,7 @@ def golden_snr(name: str) -> float:
     got = render_fidelity(
         material.case_input(rate, channels), material.SR, int(material.SECONDS * material.SR),
         rate=rate, semitones=semitones, tonality_hz=material.TONALITY_HZ,
-        seed=int(golden[seed_key]) if seed_key in golden.files else 1,
+        seed=int(golden[seed_key]) if seed_key in golden.files else 1, device="cpu",
         **material.case_render_kwargs(extras))
     end = int(extras.get("_compare_sec", material.SECONDS) * material.SR)
     return material.snr_db(golden[name][..., :end], got[..., :end], material.case_skip(extras))

@@ -16,6 +16,7 @@ from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
 from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
 from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref
+from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +84,19 @@ def test_band_chain(dev, long_step):
     lead_t, chan_t = _t(lead, dev), _t(chan, dev)
     got = _launched("band_chain", lambda: band_chain(lead_t, chan_t, long_step))
     assert torch.equal(got, band_chain_ref(lead_t, chan_t, long_step))
+
+
+@pytest.mark.parametrize("window", [256, 768])
+def test_banded_interp(dev, window):
+    """Monotone positions running out of range at both ends, plus a steep
+    stretch whose tiles span more than the window (dropped taps)."""
+    rng = np.random.default_rng(window)
+    x = _t(rng.standard_normal((3, 8, 1024)).astype(np.float32), dev)
+    pos = np.sort(rng.uniform(-4, 1028, (3, 512)), axis=1)
+    pos[2] = -2.0 + 1032.0 * np.linspace(0.0, 1.0, 512) ** 3   # last tile spans ~700 bands
+    pos = _t(pos.astype(np.float32), dev)
+    got = _launched("banded_interp", lambda: banded_interp(x, pos, window))
+    assert torch.equal(got, banded_interp_ref(x, pos, window))
 
 
 def test_wrappers_refuse_mixed_devices(dev):

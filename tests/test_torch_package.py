@@ -1,5 +1,7 @@
 """PyTorch port, package rules: no JAX anywhere in it, no kernel launch
-from a CPU call, and wrappers that refuse what their kernel does not take."""
+from a CPU call, constant tables built once, wrappers that refuse what
+their kernel does not take, and entry points that run on the card unless
+the caller passes ``device="cpu"``."""
 
 from __future__ import annotations
 
@@ -13,13 +15,19 @@ import torch
 
 import bauklank_tpu_torch
 from bauklank_tpu_torch import kernels
-from bauklank_tpu_torch.engine import fidelity, spectral
+from bauklank_tpu_torch.engine import core, fidelity, spectral
+from bauklank_tpu_torch.engine.batched import init_batched_state
+from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.offline import frame_ends_for, stretch_offline
+from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.kernels import build
 from bauklank_tpu_torch.kernels.bandchain import band_chain
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
 from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.kernels.gather import frac_gather
+from bauklank_tpu_torch.kernels.interp import banded_interp
 from bauklank_tpu_torch.ops import mdft
+from bauklank_tpu_torch.serve.pool import StreamPool
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(bauklank_tpu_torch.__file__).parent
@@ -44,7 +52,7 @@ def test_no_jax_import(path):
 
 def test_kernel_sources_and_flags():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["bandchain.cu", "compsum.cu", "frac_gather.cu", "frames.cu"]
+    assert names == ["bandchain.cu", "compsum.cu", "frac_gather.cu", "frames.cu", "interp.cu"]
     for p in (PKG / "csrc").glob("*.cu"):
         head = p.read_text()[:2000]
         assert "Replaces the TPU kernel bauklank_tpu/ops/pallas/" in head, p.name
@@ -82,6 +90,73 @@ def test_step_builds_its_constant_tables_once():
     misses = [c.cache_info().misses for c in caches]
     _step()
     assert [c.cache_info().misses for c in caches] == misses
+
+
+def _fast_step():
+    """One chunk of the fast engine over two streams, formants on."""
+    cfg = StretchConfig(channels=2, block=1024, interval=256)
+    rng = np.random.default_rng(0)
+    audio = torch.from_numpy(rng.standard_normal((2, 2, 8000)).astype(np.float32))
+    ends = torch.from_numpy(np.stack([frame_ends_for(cfg, 0, 4, r) for r in (0.7, 1.4)])
+                            .astype(np.int32))
+    params = StretchParams.stack([
+        StretchParams.make(rate=0.7, semitones=5.0, device="cpu"),
+        StretchParams.make(rate=1.4, semitones=-3.0, formant_semitones=2.0, device="cpu")])
+    _, emit = core.process_chunk(cfg, init_batched_state(cfg, 2, device="cpu"), audio, ends,
+                                 params)
+    return emit
+
+
+def test_cpu_fast_step_launches_no_kernel():
+    kernels.reset_launches()
+    emit = _fast_step()
+    assert emit.shape == (2, 2, 4 * 256) and torch.isfinite(emit).all()
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_fast_step_builds_its_constant_tables_once():
+    """The fast engine's window, band centres, centre phase, lobe width and
+    MDFT twiddles are built once per geometry and device."""
+    caches = (core._window_consts, core._center_phase, core._lobe_alpha, mdft._twiddles)
+    _fast_step()
+    misses = [c.cache_info().misses for c in caches]
+    _fast_step()
+    assert [c.cache_info().misses for c in caches] == misses
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """With no CUDA device and no ``device`` given, every entry point
+    raises instead of carrying on quietly on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = StretchConfig(channels=1, block=1024, interval=256)
+    audio = np.zeros((1, 4000), np.float32)
+    calls = [
+        lambda: StreamPool(),
+        lambda: StreamPool(capacity=1, max_track_sec=1.0, engine="fidelity"),
+        lambda: fidelity.render_fidelity(audio, 44100.0, 2000),
+        lambda: stretch_offline(audio, 1.0, cfg),
+        lambda: core.init_state(cfg),
+        lambda: init_batched_state(cfg, 2),
+        lambda: StretchParams.make(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert StreamPool(capacity=1, max_track_sec=1.0, device="cpu").device.type == "cpu"
+
+
+def test_banded_interp_refuses_bad_operands():
+    f32 = torch.zeros
+    with pytest.raises(ValueError, match="multiple of 128"):
+        banded_interp(f32(1, 2, 256), f32(1, 100))
+    with pytest.raises(ValueError, match="float32"):
+        banded_interp(f32(1, 2, 256, dtype=torch.float64), f32(1, 128))
+    with pytest.raises(ValueError, match="expects"):
+        banded_interp(f32(2, 256), f32(1, 128))
+    with pytest.raises(ValueError, match="disagree"):
+        banded_interp(f32(2, 2, 256), f32(1, 128))
+    with pytest.raises(ValueError, match="device"):
+        banded_interp(f32(1, 2, 256), f32(1, 128, device="meta"))
 
 
 def test_wrappers_refuse_bad_operands():
