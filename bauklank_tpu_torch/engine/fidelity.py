@@ -1,12 +1,13 @@
 """Fidelity renderer: the reference worklet drive around the blob-exact core.
 
-Port of ``bauklank_tpu/engine/fidelity.py`` for the serving step.  One
+Port of ``bauklank_tpu/engine/fidelity.py`` for the serving forms.  One
 pool step (:func:`batched_fidelity_chunk`) runs:
 
 1. the windowed cur/prev frame fetch (kernel 1) and a batched MDFT;
 2. ``engine.spectral.chain_inputs_hops``: every hop-local input of the
    chunk in one batched pass (peaks map via kernel 2, gathers via
-   kernel 3);
+   kernel 3 or the fused kernel 7, the formant chain where a voice asks
+   for it);
 3. a Python loop over hops whose body rotates the carried spectrum, forms
    the time prediction and ``u12``, and runs the band chain (kernel 4);
 4. the batched inverse MDFT and the overlap-add with the carried tail.
@@ -18,6 +19,9 @@ time by stage.
 
 The host side (:func:`hop_frame_ends`) replicates the worklet's float time
 accumulation bit-for-bit, as the JAX package does.
+
+:func:`batched_live_fidelity_chunk` is the coupled (live-input) drive:
+the same step fed from a rolling input ring with constant frame ends.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ import torch
 from torch.profiler import record_function
 
 from bauklank_tpu_torch.engine.spectral import (
-    FORMANTS_TODO,
     SpectralConfig,
     SpectralState,
     _rotation,
@@ -51,6 +54,9 @@ __all__ = [
     "init_fidelity_state",
     "init_batched_fidelity_state",
     "batched_fidelity_chunk",
+    "live_fidelity_ring_len",
+    "init_batched_live_fidelity_state",
+    "batched_live_fidelity_chunk",
     "fidelity_state_from_numpy",
     "fidelity_state_to_numpy",
     "render_fidelity",
@@ -139,13 +145,16 @@ def _analyse_many(cfg: SpectralConfig, audios, ends, zero_head: int = 0):
     return _spectra(cfg, frames)
 
 
-def _analyse_cur_prev(cfg: SpectralConfig, audios, ends):
+def _analyse_cur_prev(cfg: SpectralConfig, audios, ends, full_prev: bool = False):
     """Batched cur/prev analyses for a pool chunk ([S, H] ends ->
     [H, S, C, bands] each): with split on both frame families analyse in
     ONE batched pass; with split off the prev windows zero their first
-    interval (the decoded split-off law)."""
+    interval (the decoded split-off law).  ``full_prev`` takes the
+    full-window prev analysis even with split off: the coupled (live)
+    drive never seeks, and the zero head comes from the seek path's short
+    prev refresh."""
     h = ends.shape[1]
-    if cfg.split:
+    if cfg.split or full_prev:
         both = torch.cat([ends, ends - cfg.interval], dim=1)     # [S, 2H]
         specs = _analyse_many(cfg, audios, both)
         return specs[:, :h].transpose(0, 1), specs[:, h:].transpose(0, 1)
@@ -214,23 +223,29 @@ def _hop_loop(cfg: SpectralConfig, prev_out: torch.Tensor, xs: dict) -> torch.Te
 
 
 def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, limit,
-                           active):
+                           active, formant_factor=None, formant_compensation=None,
+                           formant_base=None, coupled: bool = False,
+                           deterministic: bool | None = None):
     """Whole-pool fidelity step, hop-parallel form.
 
     states = (SpectralState with a leading [S] axis, tails [S, C, block +
     interval]); audios [S, C, T] f32; ends [S, H] int frame ends; tf, mult,
-    limit, active [S] f32.  Returns ((new_spec_state, new_tails), emit
-    [S, C, H * interval]).  Inactive streams keep their state frozen and
-    emit silence."""
-    if cfg.formants:
-        raise NotImplementedError(FORMANTS_TODO)
+    limit, active and the three formant controls [S] f32 (the formant
+    chain runs where ``cfg.formants`` and the controls are given).
+    ``coupled``: the live drive, whose prev analysis keeps its full window
+    with split off (only the placement half of the split-off law applies).
+    ``deterministic``: the caller's word that every stream is at time
+    factor <= 2 (``engine.spectral._hop_inputs_hoisted``).  Returns
+    ((new_spec_state, new_tails), emit [S, C, H * interval]).  Inactive
+    streams keep their state frozen and emit silence."""
     spec_states, tails = states
     h = ends.shape[1]
     with record_function("fidelity.analyse"):
-        cur, prev = _analyse_cur_prev(cfg, audios, ends)
+        cur, prev = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
     with record_function("fidelity.chain_inputs"):
         xs, (rng_final, fv, fw) = chain_inputs_hops(
-            cfg, spec_states, cur, prev, tf, mult, limit)
+            cfg, spec_states, cur, prev, tf, mult, limit,
+            formant_factor, formant_compensation, formant_base, deterministic)
     with record_function("fidelity.hop_loop"):
         outs = _hop_loop(cfg, spec_states.prev_output, xs)          # [S, H, C, B]
 
@@ -254,11 +269,71 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
     return (new_spec, freeze(new_tails, tails)), emit
 
 
+def live_fidelity_ring_len(cfg: SpectralConfig, hops: int) -> int:
+    """Input-ring length of the coupled (live-input) drive: the oldest
+    window a chunk of ``hops`` hops reads is the prev analysis of its first
+    hop, ``block + interval`` samples before that hop's window end, which
+    itself sits ``hops * interval`` before the ring's write head."""
+    return cfg.block + (hops + 1) * cfg.interval
+
+
+def init_batched_live_fidelity_state(cfg: SpectralConfig, hops: int, capacity: int,
+                                     device, seed: int = 1):
+    """(SpectralState, ola_tail, input_ring [S, C, L]) for ``capacity``
+    streams.  The ring starts zeroed: the blob's freshly reset input ring
+    (silence before the stream starts)."""
+    spec, tails = init_batched_fidelity_state(cfg, capacity, device, seed)
+    rings = torch.zeros((capacity, cfg.channels, live_fidelity_ring_len(cfg, hops)),
+                        dtype=torch.float32, device=device)
+    return spec, tails, rings
+
+
+def batched_live_fidelity_chunk(cfg: SpectralConfig, states, chunks, mult, limit, active,
+                                formant_factor=None, formant_compensation=None,
+                                formant_base=None):
+    """The coupled (live-input) pool step: consume ``chunks [S, C, H *
+    interval]`` of live input per stream and emit as many processed
+    samples.
+
+    The reference's live branch copies each render quantum into the input
+    ring and processes it with no seek, so input fills the ring in
+    lockstep with the output: chunk-local hop ``i`` analyses the window
+    ending ``(H - i) * interval`` before the ring's write head, the time
+    factor is 1 (the deterministic regime, MINSTD never drawn), and with
+    split off only the placement half of the split-off law applies.  This
+    is :func:`batched_fidelity_chunk` on the rolled ring with constant
+    frame ends and ``coupled=True``.
+
+    states = (SpectralState, ola_tail, ring) from
+    :func:`init_batched_live_fidelity_state`.  A chunk whose hops reach
+    back further than the ring raises (the JAX package reads zeros there)."""
+    spec_states, tails, rings = states
+    s_n, _, n = chunks.shape
+    interval = cfg.interval
+    h = n // interval
+    if h * interval != n:
+        raise ValueError(f"chunk of {n} samples is not a whole number of {interval}-sample hops")
+    el = rings.shape[-1]
+    if el < live_fidelity_ring_len(cfg, h):
+        raise ValueError(
+            f"a chunk of {h} hops needs a ring of {live_fidelity_ring_len(cfg, h)} samples; "
+            f"the state's ring holds {el} (build it with hops >= {h})")
+    rings = torch.cat([rings[:, :, n:], chunks.to(torch.float32)], dim=-1)
+    ends = el - (h - torch.arange(h, dtype=torch.int32, device=rings.device)) * interval
+    (spec_states, tails), emit = batched_fidelity_chunk(
+        cfg, (spec_states, tails), rings, ends[None].expand(s_n, h),
+        torch.ones(s_n, dtype=torch.float32, device=rings.device), mult, limit, active,
+        formant_factor, formant_compensation, formant_base,
+        coupled=True, deterministic=True)
+    return (spec_states, tails, rings), emit
+
+
 def fidelity_state_from_numpy(tree, device):
-    """The JAX state pytree ``(SpectralState, ola_tail)`` with numpy leaves
-    (any leading batch axes) -> the port's tensors on ``device``.  The
-    MINSTD state is uint32 in JAX and int64 here."""
-    spec, tail = tree
+    """The JAX state pytree ``(SpectralState, ola_tail)`` or, for the live
+    drive, ``(SpectralState, ola_tail, input_ring)`` with numpy leaves (any
+    leading batch axes) -> the port's tensors on ``device``.  The MINSTD
+    state is uint32 in JAX and int64 here."""
+    spec, *rest = tree
     po, ppe, rng, fv, fw = spec
     t = lambda x, dt: torch.from_numpy(np.array(x, dtype=dt)).to(device)
     return (
@@ -269,14 +344,14 @@ def fidelity_state_from_numpy(tree, device):
             f_value_ema=t(fv, np.float32),
             f_weighted_ema=t(fw, np.float32),
         ),
-        t(tail, np.float32),
+        *(t(x, np.float32) for x in rest),
     )
 
 
 def fidelity_state_to_numpy(state):
     """Inverse of :func:`fidelity_state_from_numpy`: numpy leaves in the
     JAX layout and dtypes (rng back to uint32)."""
-    spec, tail = state
+    spec, *rest = state
     n = lambda x: x.detach().cpu().numpy()
     return (
         SpectralState(
@@ -286,7 +361,7 @@ def fidelity_state_to_numpy(state):
             f_value_ema=n(spec.f_value_ema),
             f_weighted_ema=n(spec.f_weighted_ema),
         ),
-        n(tail),
+        *(n(x) for x in rest),
     )
 
 
@@ -300,6 +375,9 @@ def render_fidelity(
     block_ms: float = 120.0,
     interval_ms: float = 30.0,
     seed: int = 1,
+    formant_semitones: float = 0.0,
+    formant_compensation: bool = False,
+    formant_base_hz: float = 0.0,
     split_computation: bool = True,
     hops_per_chunk: int = 8,
     device=DEFAULT_DEVICE,
@@ -308,26 +386,32 @@ def render_fidelity(
     stream runs through :func:`batched_fidelity_chunk` chunk by chunk
     with carried state (the hop count padded to whole chunks).  Same
     arguments and semantics as the reference harness'
-    ``native.render_reference`` (formant controls are not ported yet).
-    It runs on ``device``, the card unless the caller passes another.
-    audio [C, T] float32 -> [C, n_out] float32."""
+    ``native.render_reference``.  It runs on ``device``, the card unless
+    the caller passes another.  audio [C, T] float32 -> [C, n_out]
+    float32."""
     device = resolve_device(device)
     sr = float(sample_rate)
+    use_formants = formant_semitones != 0.0 or bool(formant_compensation)
     cfg = SpectralConfig(channels=audio.shape[0], block=round(block_ms / 1000 * sr),
-                         interval=round(interval_ms / 1000 * sr), split=split_computation)
+                         interval=round(interval_ms / 1000 * sr), formants=use_formants,
+                         split=split_computation)
     n_hops = -(-n_out // cfg.interval)
     n_hops = -(-n_hops // hops_per_chunk) * hops_per_chunk
     ends = torch.from_numpy(hop_frame_ends(cfg, n_hops, rate, sr, split=split_computation))
     mult = float(np.exp2(semitones / 12.0))
     one = lambda v: torch.tensor([v], dtype=torch.float32, device=device)
     # blob seek law: timeFactor = f32(min(1/rate, interval))
-    controls = (one(min(1.0 / rate, float(cfg.interval))), one(mult),
-                one((tonality_hz / sr) / np.sqrt(mult)), one(1.0))
+    tf = min(1.0 / rate, float(cfg.interval))
+    controls = [one(tf), one(mult), one((tonality_hz / sr) / np.sqrt(mult)), one(1.0)]
+    if use_formants:
+        controls += [one(float(np.exp2(formant_semitones / 12.0))),
+                     one(1.0 if formant_compensation else 0.0), one(formant_base_hz / sr)]
     state = init_batched_fidelity_state(cfg, 1, device, seed)
     audios = torch.from_numpy(np.asarray(audio, np.float32))[None].to(device)
     emitted = []
     for c in range(n_hops // hops_per_chunk):
         e = ends[c * hops_per_chunk:(c + 1) * hops_per_chunk][None].to(device)
-        state, emit = batched_fidelity_chunk(cfg, state, audios, e, *controls)
+        state, emit = batched_fidelity_chunk(cfg, state, audios, e, *controls,
+                                             deterministic=float(np.float32(tf)) <= 2.0)
         emitted.append(emit[0])
     return torch.cat(emitted, dim=-1)[..., :n_out].cpu().numpy()

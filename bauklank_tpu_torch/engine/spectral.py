@@ -2,9 +2,9 @@
 
 Port of ``bauklank_tpu/engine/spectral.py`` for the serving step: the
 configuration and state types, MINSTD, the bidirectional smoother, the
-peaks map, the hop-local stage (``chain_inputs_hops``) and the packing
-of the sequential band chain.  One hop maps (carried state, two
-analyses, controls) -> (new state, output spectrum):
+peaks map, the formant chain, the hop-local stage (``chain_inputs_hops``)
+and the packing of the sequential band chain.  One hop maps (carried
+state, two analyses, controls) -> (new state, output spectrum):
 
 1. rotate carried spectra to the new frame position,
 2. peak-based frequency map (channel-summed energy -> two-pass one-pole
@@ -13,19 +13,26 @@ analyses, controls) -> (new state, output spectrum):
    the previous-interval analysis, shared stale prediction buffer),
 4. sequential Gauss-Seidel phase propagation over bands with short (1) and
    long (round(fft/interval)) neighbours, max-energy channel leading and
-   the other channels phase-locked to it (kernel 4).
+   the other channels phase-locked to it (kernel 4),
+5. formant processing where a voice asks for it: a gain on the channel
+   energies from the smoothed spectral envelope looked up at the
+   formant-mapped frequency, its smoothing width from the tracked f0 or
+   from the given base.
 
 Batch axes are written out: hop-local work runs on ``[H, S, ...]``
 tensors, flattened to ``N = H * S`` rows for the peaks map and the
 gathers.  The TPU forms of the JAX module (one-hot block gathers, the
 MXU rank count, the uint32 limb MINSTD) are replaced by what they
 compute: plain indexing, exact integer counts, int64 modular products.
-Formant processing (step 5) is not ported yet.
+The row gathers are kernel 3 (``frac_gather``, two launches) or, in the
+deterministic regime with ``BAUKLANK_CHAINFETCH`` set, kernel 7
+(``chainfetch``, one fused launch); both give the same bits.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -33,7 +40,7 @@ import torch
 
 from bauklank_tpu_torch.kernels.bandchain import band_chain
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
-from bauklank_tpu_torch.ops.gather import frac_gather
+from bauklank_tpu_torch.ops.gather import chainfetch, frac_gather
 from bauklank_tpu_torch.ops.mdft import unit_phase
 from bauklank_tpu_torch.ops.scan import associative_scan
 
@@ -49,7 +56,6 @@ __all__ = [
 ]
 
 EPS = 1e-15  # the blob's noise floor (measured; pymodel.EPS)
-FORMANTS_TODO = "formant processing is not ported yet (ROADMAP queue 1, formants slice)"
 
 
 def fft_size_for(block: int) -> int:
@@ -100,8 +106,8 @@ def blob_window(block: int, interval: int) -> np.ndarray:
 class SpectralConfig(NamedTuple):
     """Static shapes for the fidelity core.
 
-    formants: the blob's step-5 formant processing (not ported yet; a
-    config with it set is refused).  split: splitComputation mode — only
+    formants: run the blob's step-5 formant processing (with it off the
+    formant arguments of a step are ignored).  split: splitComputation mode — only
     the frame drive differs (split-off zeroes the first interval of the
     prev-analysis window and places frames one interval earlier)."""
 
@@ -222,13 +228,19 @@ def _affine_scan(a: torch.Tensor, b: torch.Tensor):
     return tuple(associative_scan(compose, [a, b], dim=-1))
 
 
-def _smooth_bidirectional(e: torch.Tensor, coef: float, carry: torch.Tensor):
+def _smooth_bidirectional(e: torch.Tensor, coef, carry: torch.Tensor):
     """The blob's two-pass one-pole smoother (backward then forward) with
     the carry threaded between passes: y_b = y_prev + coef (e_b - y_prev)
     as two affine scans.  e [..., B] -> (smoothed [..., B], carry [...]).
-    ``1 - coef`` is taken in float64 and then rounded, as in JAX."""
-    a = torch.full_like(e, float(np.float32(1.0 - coef)))
-    cf = torch.full_like(e, float(np.float32(coef)))
+    ``coef``: a Python float, whose ``1 - coef`` is taken in float64 and
+    then rounded, or a tensor over the leading axes (one coefficient per
+    row), whose ``1 - coef`` is taken in float32; both as in JAX."""
+    if isinstance(coef, (float, int)):
+        a = torch.full_like(e, float(np.float32(1.0 - coef)))
+        cf = torch.full_like(e, float(np.float32(coef)))
+    else:
+        cf = coef.to(e.dtype)[..., None].expand(e.shape)
+        a = 1.0 - cf
 
     def affine(vals, c0):
         aa, bb = _affine_scan(a, cf * vals)
@@ -328,6 +340,90 @@ def _find_peaks_map_batched(energy, smoothed, mult, limit, bands: int, fft: int)
     return input_bin, grad
 
 
+# ------------------------------------------------------------- formants
+# the blob's epsilon constant in the formant ratio (reint 0x0DA24260)
+_FORMANT_TINY = float(np.frombuffer(np.uint32(228737632).tobytes(), np.float32)[0])
+
+
+def _formant_peak(env_energy: torch.Tensor):
+    """The hop-local part of the auto-f0 tracker for N rows: env_energy
+    [N, B] -> (peak_value [N] f32, folded index i5 [N] int32).
+
+    The blob scans the bands once, keeping the three largest local maxima
+    (``v >= left`` and ``v > right``) seen so far, seeded with three copies
+    of band 0; a candidate enters only if strictly above the third, and a
+    tie keeps the earlier band first.  That is the stable descending
+    top three of the seeds followed by the candidates in band order, taken
+    here as three first-maximum picks over the masked row; the two
+    harmonic folds after it are elementwise integer operations."""
+    n, b_n = env_energy.shape
+    v = env_energy[:, 1:-1]
+    cand = (v >= env_energy[:, :-2]) & (v > env_energy[:, 2:])
+    neg = torch.full_like(v, -torch.inf)
+    # columns 0..2: the seeds (band 0); column j >= 3: band j - 2
+    work = torch.cat([env_energy[:, :1].expand(n, 3), torch.where(cand, v, neg)], dim=1)
+    vals, idxs = [], []
+    for _ in range(3):
+        col = torch.argmax(work, dim=1, keepdim=True)    # the first maximum
+        vals.append(torch.gather(work, 1, col)[:, 0])
+        idxs.append(torch.clamp_min(col[:, 0] - 2, 0).to(torch.int32))
+        work = work.scatter(1, col, -torch.inf)
+    (peak_val, e2, e4), (i5, i2, i4) = vals, idxs
+
+    do1 = e2 > peak_val * 0.1
+    d1 = torch.abs(i5 - i2)
+    fold1 = do1 & ~((d1 <= i5 // 8) | (d1 >= (i5 * 7) // 8))
+    i5 = torch.where(fold1, i5 % torch.clamp_min(d1, 1), i5)
+    do2 = do1 & (e4 > peak_val * 0.01)
+    d2 = torch.abs(i5 - i4)
+    fold2 = do2 & ~((d2 <= i5 // 8) | (d2 >= (i5 * 7) // 8))
+    i5 = torch.where(fold2, i5 % torch.clamp_min(d2, 1), i5)
+    return peak_val, i5
+
+
+def _formant_ema(pv, i5, value_ema, weighted_ema, update):
+    """The hop-sequential tail of the auto-f0 tracker: 1/16 EMAs of the
+    (folded) peak value and its energy-weighted index, advanced only where
+    ``update``; width = weighted / (value + tiny).  Returns (width,
+    new_value_ema, new_weighted_ema)."""
+    new_value = value_ema + (pv - value_ema) * 0.0625
+    new_weighted = weighted_ema + (pv * i5.to(torch.float32) - weighted_ema) * 0.0625
+    new_value = torch.where(update, new_value, value_ema)
+    new_weighted = torch.where(update, new_weighted, weighted_ema)
+    width = new_weighted / (new_value + _FORMANT_TINY)
+    return width, new_value, new_weighted
+
+
+def _formant_gain_from_width(cfg: SpectralConfig, env_e, width, active, mult, limit,
+                             formant_factor, formant_compensation):
+    """The hop-local tail of step 5 once the smoothing width is known: the
+    envelope smoothed with a per-row coefficient, the (compensation-aware)
+    frequency remap, and the squared-ratio gain.  env_e [H, S, B], width
+    [H, S], the rest [S].  Returns the gain [H, S, B]; a voice that is not
+    ``active`` gets exactly 1."""
+    fft, b_n = cfg.fft, cfg.bands
+    h, s_n = width.shape
+    env = torch.sqrt(env_e)
+    coef = 1.0 / (width * 0.5 + 1.0)
+    sm, carry = _smooth_bidirectional(env, coef, torch.zeros_like(width))
+    sm, _ = _smooth_bidirectional(sm, coef, carry)
+    freq = (torch.arange(b_n, dtype=torch.float32, device=env_e.device) + 0.5) / fft
+    col = lambda x: x[:, None]
+    # compensation: look up in transpose-mapped space (undoes the shift)
+    fr = torch.where(
+        col(formant_compensation) != 0.0,
+        torch.where(freq > col(limit), freq + (col(mult) - 1.0) * col(limit), freq * col(mult)),
+        freq)                                                     # [S, B]
+    fm = (1.0 / col(formant_factor)) * fr
+    fm = torch.where(fm > col(limit), (1.0 - col(formant_factor)) * col(limit) + fr, fm)
+    pos = fm * fft - 0.5
+    env_m = frac_gather(sm.reshape(h * s_n, b_n, 1).contiguous(),
+                        pos.expand(h, s_n, b_n).reshape(h * s_n, b_n).contiguous())
+    env_m = torch.where(pos < 0.0, 0.0, env_m.reshape(h, s_n, b_n))
+    ratio = env_m / (sm + _FORMANT_TINY)
+    return torch.where(active[:, None], torch.square(ratio), 1.0)
+
+
 # ------------------------------------------------------ hop-local stage
 def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
     """a[..., k:] followed by k zeros."""
@@ -343,13 +439,15 @@ def _rotation(cfg: SpectralConfig, device: torch.device) -> torch.Tensor:
 
 
 def _hop_pre_gather(cfg: SpectralConfig, cur, prev, input_bin_map, grad_map,
-                    seq, time_factor, mult):
+                    seq, time_factor, mult, fgain=None):
     """Steps 3-6 up to the row gathers, for all hops: the rotated
-    previous-interval analysis, channel energies, the map (identity
-    where the stream does not transpose), and the five-family gather
-    positions.  cur, prev [H, S, C, B]; maps [H, S, B]; seq [H, S, 2B-2];
-    time_factor, mult [S].  Returns (prev_rot, energy_c, input_bin, grad,
-    pos5 [H, S, 5B])."""
+    previous-interval analysis, channel energies (times the step-5 gain
+    ``fgain`` [H, S, B] where given), the map (identity where the stream
+    does not transpose), and the five families' gather positions.  cur,
+    prev [H, S, C, B]; maps [H, S, B]; seq [H, S, 2B-2]; time_factor, mult
+    [S].  Returns (prev_rot, energy_c, input_bin, grad, families): the
+    positions [H, S, B] of pred (``input_bin`` itself), down_s, down_l, us
+    and ul, in the five-family table's order."""
     b_n, long_step = cfg.bands, cfg.long_step
     b_idx = torch.arange(b_n, dtype=torch.float32, device=cur.device)
     prev_rot = prev * _rotation(cfg, cur.device)
@@ -357,12 +455,14 @@ def _hop_pre_gather(cfg: SpectralConfig, cur, prev, input_bin_map, grad_map,
     mapping = (mult != 1.0)[None, :, None]
     input_bin = torch.where(mapping, input_bin_map, b_idx)
     grad = torch.where(mapping, grad_map, 1.0)
+    if fgain is not None:
+        energy_c = energy_c * fgain[:, :, None]
     d_down, d_up = _minstd_steps(seq, time_factor[None].expand(seq.shape[:2]))
     us_pos = _shift(input_bin, 1) - d_up
     ul_pos = _shift(input_bin, long_step) - d_up * long_step
-    pos5 = torch.cat([input_bin, input_bin - d_down, input_bin - d_down * long_step,
-                      us_pos, ul_pos], dim=-1)
-    return prev_rot, energy_c, input_bin, grad, pos5
+    families = (input_bin, input_bin - d_down, input_bin - d_down * long_step,
+                us_pos, ul_pos)
+    return prev_rot, energy_c, input_bin, grad, families
 
 
 def _planes(z: torch.Tensor) -> torch.Tensor:
@@ -407,11 +507,27 @@ def _hop_post_gather(cfg: SpectralConfig, five, pe_raw, prev_interp, grad):
     )
 
 
-def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult, limit):
+def chainfetch_enabled() -> bool:
+    """The JAX package's switch for the fused six-family fetch:
+    ``BAUKLANK_CHAINFETCH`` set to anything but 0, false or off (off by
+    default)."""
+    return os.environ.get("BAUKLANK_CHAINFETCH", "0") not in ("0", "false", "off")
+
+
+def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult, limit,
+                        fgain=None, deterministic: bool | None = None):
     """All hops' chain inputs: the peaks map for every (hop, stream) row
-    in one batched pass, then the two fractional gathers (kernel 3) —
-    ``spec`` planes at the five-family positions and ``prev | energy``
-    planes at ``input_bin``."""
+    in one batched pass, then the row gathers — ``spec`` planes at the
+    five-family positions and ``prev | energy`` planes at ``input_bin``.
+
+    The gathers are two launches of kernel 3, or, with
+    ``BAUKLANK_CHAINFETCH`` set and every stream in the deterministic
+    regime (time factor <= 2), one launch of kernel 7; the two routes give
+    the same bits.  ``deterministic`` is the caller's word on the regime
+    (the pool knows its rates on the host); left None, the switched-on
+    route reads it from ``time_factor``, which waits for the device.
+    With the regime known to be deterministic the MINSTD draw streams,
+    which it discards, are not computed."""
     h, s_n, c_n, b_n = cur.shape
     n = h * s_n
     dev = cur.device
@@ -425,21 +541,36 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
     limit_n = limit[None].expand(h, s_n).reshape(n)
     ib_m, gr_m = _find_peaks_map_batched(e_flat, sm, mult_n, limit_n, b_n, cfg.fft)
 
+    fused = chainfetch_enabled()
+    if fused and deterministic is None:
+        deterministic = bool((time_factor <= 2.0).all())
+    fused = fused and bool(deterministic)
+
     # MINSTD draw streams of every hop (used only where tf > 2)
-    pows, _ = _minstd_tables(2 * b_n - 2, h, dev)
-    seq = _modmul31(seeds[..., None], pows)                      # [H, S, 2B-2]
+    if deterministic:
+        seq = torch.ones((), dtype=torch.int64, device=dev).expand(h, s_n, 2 * b_n - 2)
+    else:
+        pows, _ = _minstd_tables(2 * b_n - 2, h, dev)
+        seq = _modmul31(seeds[..., None], pows)                  # [H, S, 2B-2]
 
-    prev_rot, energy_c, input_bin, grad, pos5 = _hop_pre_gather(
+    prev_rot, energy_c, input_bin, grad, families = _hop_pre_gather(
         cfg, cur, prev, ib_m.reshape(h, s_n, b_n), gr_m.reshape(h, s_n, b_n),
-        seq, time_factor, mult)
+        seq, time_factor, mult, fgain)
 
-    spec_p = _planes(cur.reshape(n, c_n, b_n))                   # [N, B, 2C]
-    comb_p = torch.cat([
-        _planes(prev_rot.reshape(n, c_n, b_n)),
-        energy_c.reshape(n, c_n, b_n).transpose(1, 2),
-    ], dim=-1).contiguous()                                      # [N, B, 3C]
-    five_p = frac_gather(spec_p.contiguous(), pos5.reshape(n, 5 * b_n).contiguous())
-    g1 = frac_gather(comb_p, input_bin.reshape(n, b_n).contiguous())
+    rows = lambda x: x.reshape(n, b_n).contiguous()
+    spec_p = _planes(cur.reshape(n, c_n, b_n)).contiguous()      # [N, B, 2C]
+    prev_p = _planes(prev_rot.reshape(n, c_n, b_n))
+    en_p = energy_c.reshape(n, c_n, b_n).transpose(1, 2)         # [N, B, C]
+    if fused:
+        step = torch.clamp(time_factor.to(torch.float32), 0.5, 2.0)
+        five_p, g1 = chainfetch(
+            spec_p, prev_p.contiguous(), en_p.contiguous(), rows(input_bin),
+            rows(families[3]), rows(families[4]),
+            step[None].expand(h, s_n).reshape(n).contiguous(), cfg.long_step)
+    else:
+        comb_p = torch.cat([prev_p, en_p], dim=-1).contiguous()  # [N, B, 3C]
+        five_p = frac_gather(spec_p, torch.cat(families, dim=-1).reshape(n, 5 * b_n))
+        g1 = frac_gather(comb_p, rows(input_bin))
 
     five = _complex_of(five_p).reshape(h, s_n, c_n, 5 * b_n)
     prev_interp = _complex_of(g1[..., : 2 * c_n].contiguous()).reshape(h, s_n, c_n, b_n)
@@ -448,19 +579,24 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
 
 
 def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
-                      time_factor, mult, limit):
+                      time_factor, mult, limit,
+                      formant_factor=None, formant_compensation=None, formant_base=None,
+                      deterministic: bool | None = None):
     """Precompute the chain inputs of ALL hops of a serving chunk in one
-    batched pass: the smoothers, peak maps, MINSTD draw streams and row
-    gathers are hop-local once the MINSTD seeds (a data-independent
-    geometric sequence) and the stale-prediction denominators (a one-hop
-    shift of the hop-local pred_energy) are resolved up front.
+    batched pass: the smoothers, peak maps, MINSTD draw streams, row
+    gathers and the formant chain are hop-local once the MINSTD seeds (a
+    data-independent geometric sequence), the formant EMAs (a scalar
+    recurrence over the hops) and the stale-prediction denominators (a
+    one-hop shift of the hop-local pred_energy) are resolved up front.
 
     state: leading [S] axis on every leaf; cur, prev [H, S, C, B]
-    complex64; time_factor, mult, limit [S].  Returns ``(xs, carried)``:
-    ``xs`` a dict of [H, S, ...] operands (including ``den``), ``carried =
-    (rng_final, f_value_ema, f_weighted_ema)``."""
-    if cfg.formants:
-        raise NotImplementedError(FORMANTS_TODO)
+    complex64; time_factor, mult, limit and the formant controls [S].
+    Formants run where ``cfg.formants`` and the controls are given;
+    neutral controls then give the exact identity gain and frozen
+    trackers.  ``deterministic``: see :func:`_hop_inputs_hoisted`.
+    Returns ``(xs, carried)``: ``xs`` a dict of [H, S, ...] operands
+    (including ``den``), ``carried = (rng_final, f_value_ema,
+    f_weighted_ema)``."""
     h = cur.shape[0]
     n_draws = 2 * cfg.bands - 2
     _, hop_pows = _minstd_tables(n_draws, h, cur.device)
@@ -469,13 +605,30 @@ def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
     seeds = torch.where(use[None, :], seeds_all[:h], state.rng[None, :])
     rng_final = torch.where(use, seeds_all[h], state.rng)
 
-    xs = _hop_inputs_hoisted(cfg, cur, prev, seeds, time_factor, mult, limit)
+    fgain = None
+    fv, fw = state.f_value_ema, state.f_weighted_ema
+    if cfg.formants and formant_factor is not None:
+        active = (formant_factor != 1.0) | ((formant_compensation != 0.0) & (mult != 1.0))
+        env_e = torch.sum(torch.square(torch.abs(cur)), dim=2)    # [H, S, B]
+        auto = formant_base <= 0.0
+        s_n = env_e.shape[1]
+        pv, i5 = (x.reshape(h, s_n) for x in _formant_peak(env_e.reshape(h * s_n, -1)))
+        w_auto = []
+        for i in range(h):
+            wid, fv, fw = _formant_ema(pv[i], i5[i], fv, fw, active & auto)
+            w_auto.append(wid)
+        width = torch.where(auto, torch.stack(w_auto), formant_base * cfg.fft - 0.5)
+        fgain = _formant_gain_from_width(cfg, env_e, width, active, mult, limit,
+                                         formant_factor, formant_compensation)
+
+    xs = _hop_inputs_hoisted(cfg, cur, prev, seeds, time_factor, mult, limit, fgain,
+                             deterministic)
 
     # stale prediction denominators: hop h sees max(pe_h, pe_{h-1}) + EPS
     pe = xs["pred_energy"]                                        # [H, S, C, B]
     prev_pe = torch.cat([state.prev_pred_energy[None], pe[:-1]], dim=0)
     xs["den"] = torch.maximum(pe, prev_pe) + EPS
-    return xs, (rng_final, state.f_value_ema, state.f_weighted_ema)
+    return xs, (rng_final, fv, fw)
 
 
 # ------------------------------------------------------------ band chain

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of both engines, with their wrappers.
 
 Each kernel module holds the wrapper (``frames_windowed``,
-``comp_cumsum``, ``frac_gather``, ``band_chain`` for the fidelity step;
-``frames_windowed`` and ``banded_interp`` for the fast one) and its plain PyTorch
-version (``*_ref``, same signature).  A wrapper checks its operands,
+``comp_cumsum``, ``frac_gather`` or, on the fused route, ``chainfetch``,
+and ``band_chain`` for the fidelity step; ``frames_windowed`` and
+``banded_interp`` for the fast one; ``pallas_gather``, which no step
+calls) and its plain PyTorch version (``*_ref``, same signature).  A wrapper checks its operands,
 sends a CPU tensor to the plain version, and launches the CUDA kernel on
 a CUDA tensor, raising on any launch error; it never falls back.
 :data:`LAUNCHES` counts kernel launches, one per launch and nowhere else,
@@ -17,7 +18,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launches", "on_cuda", "stream_of", "require"]
 
 LAUNCHES = {"frames_windowed": 0, "comp_cumsum": 0, "frac_gather": 0, "band_chain": 0,
-            "banded_interp": 0}
+            "banded_interp": 0, "pallas_gather": 0, "chainfetch": 0}
 
 
 def reset_launches() -> None:

@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds).  The build runs at first use, reads only the
+All ``csrc/*.cu`` files (with the ``*.cuh`` headers they share) compile
+with ``nvcc`` into ONE shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so the build takes seconds).  The build runs at first use, reads only the
 package's own sources, and writes to ``bauklank_tpu_torch/_build/``
 (listed in ``.gitignore``).  The library's file name carries a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -40,6 +40,8 @@ SIGNATURES = {
     "bk_frames_windowed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bk_comp_cumsum": (_P, _P, _P, _I, _I, _I, _P),
     "bk_frac_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "bk_pallas_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "bk_chainfetch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bk_band_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
     "bk_banded_interp": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -67,13 +69,17 @@ def _sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> pathlib.Path:
     """Compile the kernels (if this source set is not built yet) and return
     the library's path.  The compiler's output, including ``ptxas``'s
     register and spill report, is kept beside it as ``.log``."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + _headers():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out = build_dir() / f"libbauklank_kernels_{h.hexdigest()[:16]}.so"

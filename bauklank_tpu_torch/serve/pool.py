@@ -37,7 +37,6 @@ from bauklank_tpu_torch.engine.fidelity import (
     init_batched_fidelity_state,
 )
 from bauklank_tpu_torch.engine.params import StretchParams
-from bauklank_tpu_torch.engine.spectral import FORMANTS_TODO
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from bauklank_tpu_torch.utils.metrics import StepTimer
@@ -105,9 +104,12 @@ def _pool_step(config: StretchConfig, states, audios, packed):
     return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
 
 
-def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed):
+def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
+                        deterministic: bool | None = None):
     """One fidelity pool step from the same packed layout as
-    :func:`_pool_step`."""
+    :func:`_pool_step`.  With ``scfg.formants`` the packed formant fields
+    drive the blob's step 5 per stream.  ``deterministic``: the host's
+    word that every voice is at time factor <= 2 (:func:`_deterministic`)."""
     h = packed.shape[1] - 11
     ends = packed[:, :h].to(torch.int32)
     params = StretchParams.unpack(packed, h)
@@ -115,9 +117,22 @@ def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed):
     # the rate advances < 1 input sample per hop
     tf = torch.clamp_max(1.0 / torch.clamp_min(params.rate, 1e-6), float(scfg.interval))
     limit = params.tonality / torch.sqrt(params.transpose_factor)
+    formants = ((params.formant_factor, params.formant_compensation, params.formant_base)
+                if scfg.formants else (None, None, None))
     states, out = batched_fidelity_chunk(
-        scfg, states, audios, ends, tf, params.transpose_factor, limit, params.active)
+        scfg, states, audios, ends, tf, params.transpose_factor, limit, params.active,
+        *formants, deterministic=deterministic)
     return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
+
+
+def _deterministic(rates: np.ndarray, interval: int) -> bool:
+    """Whether every voice's time factor, as :func:`_pool_step_fidelity`
+    computes it on the device from the packed float32 rates, is <= 2 (the
+    deterministic regime): the same float32 operations on the host, so the
+    step need not wait for the device to learn its regime."""
+    tf = np.minimum(np.float32(1.0) / np.maximum(rates, np.float32(1e-6)),
+                    np.float32(interval))
+    return bool(np.all(tf <= np.float32(2.0)))
 
 
 class StreamPool:
@@ -125,7 +140,7 @@ class StreamPool:
 
     Slots are named (defaults "s00"..., or pass ``names``).  ``engine``:
     "fast" (hop-parallel, ``engine/core.py``) or "fidelity" (blob-exact,
-    ``engine/spectral.py``; formant controls not ported yet).  It runs on
+    ``engine/spectral.py``).  It runs on
     ``device``, the card unless the caller passes another."""
 
     def __init__(
@@ -343,10 +358,12 @@ class StreamPool:
         formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
         dev_packed = torch.from_numpy(packed).to(self.device)
         if self.engine == "fidelity":
-            if formants:
-                raise NotImplementedError(FORMANTS_TODO)
+            # host-side formant gating, as below: the formant chain runs
+            # only in a step where some voice uses a formant control
+            scfg = self.scfg._replace(formants=True) if formants else self.scfg
             self.states, master, streams = _pool_step_fidelity(
-                self.scfg, self.states, self._device_audio(), dev_packed)
+                scfg, self.states, self._device_audio(), dev_packed,
+                _deterministic(packed[:, h + 1], scfg.interval))
         else:
             # host-side formant gating: when no voice uses formant controls
             # this step, run the step without the formant chain (same state;

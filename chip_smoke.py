@@ -6,28 +6,38 @@
 Phases (any failure raises and exits non-zero without the result line):
 
 1. device: the card's name and power limit, TF32 off;
-2. build the five CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
+2. build the seven CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, on operands
    captured from one step of the fidelity preset serving pool (S=128,
-   H=8, 120/30 ms), of the fidelity kiosk pool (S=64, H=4, 200/200 ms,
-   rate 0.001) and of the fast preset pool (S=128, H=32, 120/30 ms; the
-   envelope gathers from a step with one formant voice), with both times,
-   the least time the card could take (``bound``) and, where one PyTorch
-   call computes the same function, that call's time;
+   H=8, 120/30 ms), of the same pool with the fused fetch switched on
+   (``BAUKLANK_CHAINFETCH=1``: kernel 7, also held bit-equal to the two
+   frac_gather launches it replaces), of the fidelity kiosk pool (S=64,
+   H=4, 200/200 ms, rate 0.001) and of the fast preset pool (S=128, H=32,
+   120/30 ms; the envelope gathers from a step with one formant voice),
+   with both times, the least time the card could take (``bound``) and,
+   where one PyTorch call computes the same function, that call's time;
+   ``pallas_gather``, which no step calls, on the fidelity pools'
+   five-family operands;
 4. each stage of both engines' steps on the card against the same stage
    on the host CPU, fed the same inputs (the CPU path is the one the
    tests hold against the JAX package): the MDFT within a relative bound,
-   every stage's output >= 80 dB SNR (a formant voice's gain >= 45 dB),
-   and the fast engine's whole 3-chunk render;
-5. three golden cases rendered on the card through the fidelity serving
-   form, each > 40 dB against the blob renders in
-   tests/golden/golden_v1.npz, and a fast-engine identity render
-   (``stretch_offline``, rate 1, 0 st) > 50 dB against its input;
-6. serving: the two fidelity pools and the fast pool driven through
-   ``StreamPool`` (tracks, starts, ``set`` messages through
-   ``protocol.parse_line`` and ``apply_set``), 2 warm-up and 10 timed
-   steps each, the launch counts set to 0 before each pool and read after
-   it; then 5 fast steps with a formant voice;
+   every stage's output >= 80 dB SNR (the fast engine's gain for a
+   formant voice >= 45 dB), the fidelity step also with formant voices
+   and as a live (coupled) chunk, and the fast engine's whole 3-chunk
+   render;
+5. five golden cases rendered on the card through the fidelity serving
+   forms (a formant case and a coupled one among them), each > 40 dB
+   against the blob renders in tests/golden/golden_v1.npz, and a
+   fast-engine identity render (``stretch_offline``, rate 1, 0 st)
+   > 50 dB against its input;
+6. serving: the two fidelity pools, the preset pool with the fused fetch
+   (its master held equal, bit for bit, to the unfused pool's) and the
+   fast pool driven through ``StreamPool`` (tracks, starts, ``set``
+   messages through ``protocol.parse_line`` and ``apply_set``), 2 warm-up
+   and 6 to 10 timed steps each, the launch counts set to 0 before each
+   pool and read after it; then 5 steps of the fidelity preset pool and of
+   the fast pool with a formant voice, and ``pallas_gather`` driven
+   directly, once;
 7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
    pool, split by the step's stages (host and device time each) and
    the card's busy share.
@@ -70,7 +80,7 @@ FORMANT_PARITY_DB = 45.0
 STAGES = {
     "fidelity": {"pool.pack": (),
                  "fidelity.analyse": ("frames_windowed",),
-                 "fidelity.chain_inputs": ("comp_cumsum", "frac_gather"),
+                 "fidelity.chain_inputs": ("comp_cumsum", "frac_gather", "chainfetch"),
                  "fidelity.hop_loop": ("band_chain",),
                  "fidelity.synthesis": ()},
     "fast": {"pool.pack": (),
@@ -78,6 +88,15 @@ STAGES = {
              "fast.hop_factors": ("banded_interp",),
              "fast.rotation_scan": (),
              "fast.synthesis": ()},
+}
+# the kernels each served pool launches every step, and how often; every
+# other count must stay 0 (the fused route trades the two frac_gather
+# launches for one chainfetch; H launches of the band chain)
+PER_STEP = {
+    "preset": {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": 8},
+    "preset-fused": {"frames_windowed": 1, "comp_cumsum": 1, "chainfetch": 1, "band_chain": 8},
+    "kiosk": {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": 4},
+    "fast": {"frames_windowed": 1, "banded_interp": 1},
 }
 KERNELS = {
     # name: (source, the TPU kernel's pl.pallas_call it replaces, the pool
@@ -92,6 +111,10 @@ KERNELS = {
                    "bauklank_tpu/ops/pallas/bandchain.py:149", "preset"),
     "banded_interp": ("bauklank_tpu_torch/csrc/interp.cu",
                       "bauklank_tpu/ops/pallas/interp.py:110", "fast"),
+    "pallas_gather": ("bauklank_tpu_torch/csrc/frac_gather.cu",
+                      "bauklank_tpu/ops/pallas/selection.py:87", "preset"),
+    "chainfetch": ("bauklank_tpu_torch/csrc/chainfetch.cu",
+                   "bauklank_tpu/ops/pallas/chainfetch.py:114", "preset-fused"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores, which none of the kernels use
@@ -100,7 +123,7 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per output, counted from each plain version
 # (band_chain: per band and stream, 26 for the leader plus 25 a channel)
 OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
-                  "banded_interp": 3}
+                  "banded_interp": 3, "pallas_gather": 3, "chainfetch": 3}
 # the dependent float32 operations one step of a chain waits on (one
 # band of the band chain, one TwoSum of the compensated sum), each at
 # least the 4-cycle latency of a float32 add or multiply
@@ -155,7 +178,8 @@ def capture_operands(store: dict, engine: str):
 
     if engine == "fidelity":
         sites = [(fidelity, "frames_windowed"), (spectral, "comp_cumsum"),
-                 (spectral, "frac_gather"), (spectral, "band_chain")]
+                 (spectral, "frac_gather"), (spectral, "chainfetch"),
+                 (spectral, "band_chain")]
     else:
         sites = [(core, "frames_windowed"), (pitchmap, "banded_interp")]
     keep = {"frac_gather": 2, "banded_interp": 3}
@@ -178,8 +202,25 @@ def capture_operands(store: dict, engine: str):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def chainfetch_switch(on: bool):
+    """The JAX package's switch for the fused six-family fetch, set for
+    the steps inside the block."""
+    old = os.environ.get("BAUKLANK_CHAINFETCH")
+    os.environ["BAUKLANK_CHAINFETCH"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["BAUKLANK_CHAINFETCH"]
+        else:
+            os.environ["BAUKLANK_CHAINFETCH"] = old
+
+
 def make_pool(kind: str, device: str):
-    """The fidelity preset serving pool (S=128, H=8, 120/30 ms), the
+    """The fidelity preset serving pool (S=128, H=8, 120/30 ms; "preset"
+    and "preset-fused" build the same pool, the latter is stepped with the
+    fused fetch switched on), the
     fidelity kiosk pool (S=64, H=4, StretchConfig(8820, 8820) as the
     unified pool builds it) or the fast preset pool (S=128, H=32,
     120/30 ms, bench.py's fast shape), with tonal tracks loaded, voices
@@ -191,8 +232,8 @@ def make_pool(kind: str, device: str):
     from bauklank_tpu_torch.serve import protocol
     from bauklank_tpu_torch.serve.pool import StreamPool
 
-    if kind in ("preset", "fast"):
-        if kind == "preset":
+    if kind in ("preset", "preset-fused", "fast"):
+        if kind != "fast":
             pool = StreamPool(capacity=128, hops_per_step=8, engine="fidelity", device=device)
         else:
             pool = StreamPool(capacity=128, hops_per_step=32, engine="fast", device=device)
@@ -246,6 +287,15 @@ def _samples_needed(starts, block: int, t_n: int) -> int:
     return int((hi - torch.maximum(lo, covered)).clamp_min(0).sum())
 
 
+def _five_positions(ib, us, ul, step, long_step: int):
+    """The five-family position table [N, 5B] that kernel 7 forms from its
+    three tables and ``step``: what the two gathers it replaces are given."""
+    import torch
+
+    c = step[:, None]
+    return torch.cat([ib, ib - c, ib - float(long_step) * c, us, ul], dim=1)
+
+
 def bound(name: str, args) -> tuple[float, str, int, int]:
     """(bound_ms, bound_by, bytes, operations): the least time the card
     could take for this call, the larger of its bytes over the memory rate
@@ -261,7 +311,14 @@ def bound(name: str, args) -> tuple[float, str, int, int]:
     elif name == "comp_cumsum":
         out = 2 * args[0].numel()
         need = args[0].numel()
-    elif name == "frac_gather":
+    elif name == "chainfetch":
+        spec, prev, energy, ib, us, ul, step, long_step = args
+        pos5 = _five_positions(ib, us, ul, step, long_step)
+        out = ib.numel() * (5 * spec.shape[2] + prev.shape[2] + energy.shape[2])
+        need = (_taps_needed(pos5, spec.shape[1]) * spec.shape[2]
+                + _taps_needed(ib, spec.shape[1]) * (prev.shape[2] + energy.shape[2])
+                + 3 * ib.numel() + step.numel())
+    elif name in ("frac_gather", "pallas_gather"):
         planes, pos = args
         out = pos.numel() * planes.shape[2]
         need = _taps_needed(pos, planes.shape[1]) * planes.shape[2] + pos.numel()
@@ -283,7 +340,7 @@ def bound(name: str, args) -> tuple[float, str, int, int]:
 
 
 def library_call(name: str, args):
-    """One PyTorch call computing the same function, or None: for the two
+    """One PyTorch call computing the same function, or None: for the
     linear-interpolation gathers, ``grid_sample`` along one axis (bilinear
     on a height-1 image, zeros outside, ``align_corners=True`` so that
     grid -1..1 spans bands 0..bins-1).  Timed beside the kernel, used
@@ -294,9 +351,16 @@ def library_call(name: str, args):
     if name == "banded_interp":
         img, pos = args[0][:, :, None, :], args[1]                       # [S, P, 1, bins]
         layout = lambda y: y[:, :, 0]
-    elif name == "frac_gather":
+    elif name in ("frac_gather", "pallas_gather"):
         img, pos = args[0].permute(0, 2, 1)[:, :, None, :], args[1]       # [N, P, 1, B]
         layout = lambda y: y[:, :, 0].transpose(1, 2)
+    elif name == "chainfetch":
+        # its two outputs are two such calls, timed together
+        spec, prev, energy, ib, us, ul, step, long_step = args
+        pos5 = _five_positions(ib, us, ul, step, long_step)
+        five, layout = library_call("frac_gather", (spec, pos5))
+        comb, _ = library_call("frac_gather", (torch.cat([prev, energy], dim=2), ib))
+        return (lambda: (five(), comb())), (lambda y: layout(y[0]))
     else:
         return None
     gx = pos * (2.0 / (img.shape[-1] - 1)) - 1.0
@@ -312,9 +376,10 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
     import torch
 
     from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
+    from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
     from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
     from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
-    from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref
+    from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
     from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
 
     pairs = {
@@ -323,6 +388,8 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
         "frac_gather": (frac_gather, frac_gather_ref),
         "band_chain": (band_chain, band_chain_ref),
         "banded_interp": (banded_interp, banded_interp_ref),
+        "pallas_gather": (pallas_gather, frac_gather_ref),
+        "chainfetch": (chainfetch, chainfetch_ref),
     }
     for name, calls in ops.items():
         kern, ref = pairs[name]
@@ -333,6 +400,15 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
             torch.cuda.synchronize()
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             finite = all(bool(torch.isfinite(g).all()) for g in got)
+            if name == "chainfetch":
+                # and against the two launches it replaces
+                spec, prev, energy, ib, us, ul, step, long_step = args
+                pos5 = _five_positions(ib, us, ul, step, long_step)
+                two = (frac_gather(spec, pos5),
+                       frac_gather(torch.cat([prev, energy], dim=2), ib))
+                if not all(torch.equal(g, t) for g, t in zip(got, two)):
+                    raise AssertionError(f"chainfetch ({tag}) differs from the two frac_gather "
+                                         "launches it replaces")
             ms = cuda_ms(lambda: kern(*args), reps=20, warm=2)
             plain_reps = 2 if name in ("band_chain", "comp_cumsum") else 10
             plain_ms = cuda_ms(lambda: ref(*args), reps=plain_reps, warm=1)
@@ -353,7 +429,8 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 call, layout = lib
                 lib_err = float((layout(call()) - got[0]).abs().max() / got[0].abs().max())
                 lib_ms = cuda_ms(call, reps=10, warm=1)
-                lib_note = f", grid_sample {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
+                what = "two grid_sample calls" if name == "chainfetch" else "grid_sample"
+                lib_note = f", {what} {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
             shapes = " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
             log(f"[kernel] {tag} {name}#{j} {shapes}: max_abs_err={err!r} "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_note}; bound {bound_ms:.4f} ms "
@@ -377,11 +454,26 @@ def _snr(ref, got) -> float:
     return float("inf") if err == 0 else float(10 * np.log10(float(ref.abs().square().sum()) / err))
 
 
+def _to_cuda(tree):
+    """A tensor, named tuple, dict or tuple of them, moved to the card."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.cuda()
+    if hasattr(tree, "_fields"):
+        return type(tree)(*map(_to_cuda, tree))
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return type(tree)(map(_to_cuda, tree))
+
+
 def device_parity() -> None:
     """Each stage of the step on the card against the same stage on the
     host CPU, both fed the CPU's inputs to that stage: four streams (rates
     0.5, 1.3, 0.25, 0.001; the last inactive) from a mid-stream state, in
-    the small test geometries and the preset one.  Fed its own inputs the
+    the small test geometries and the preset one; then with formant voices
+    (the formant trackers compared too), and as a live (coupled) chunk,
+    whose audio is the rolled input ring.  Fed its own inputs the
     card would drift from the CPU within a few hops, as any one-ulp change
     does (the renderer is chaotic, docs/WASM-ALGO.md "Sensitivity"); stage
     by stage its error stays at the rounding level, which is what the
@@ -409,41 +501,84 @@ def device_parity() -> None:
     rates, tones = (0.5, 1.3, 0.25, 0.001), (-12.0, 0.0, 7.0, 0.0)
     active = np.asarray([1, 1, 1, 0], np.float32)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    cuda = lambda tree: (tree.cuda() if isinstance(tree, torch.Tensor)
-                         else type(tree)(*map(cuda, tree)) if hasattr(tree, "_fields")
-                         else {k: cuda(v) for k, v in tree.items()} if isinstance(tree, dict)
-                         else type(tree)(map(cuda, tree)))
-    for tag, block, interval, split, h in (
-            ("small", 1024, 256, True, 4), ("small split-off", 1024, 256, False, 4),
-            ("small L=1", 1024, 1024, True, 4), ("preset", 5292, 1323, True, 8)):
-        cfg = fid.SpectralConfig(2, block, interval, split=split)
+    # formant voices: compensation under the pitch shift and a formant
+    # shift (both on auto f0), a shift on an explicit base, a neutral voice
+    formant_ctl = tuple(t(np.asarray(v, np.float32)) for v in (
+        np.exp2(np.asarray([0.0, 4.0, -5.0, 0.0]) / 12), [1, 0, 1, 0], [0, 0, 200 / SR, 0]))
+    for tag, block, interval, split, h, formants, live in (
+            ("small", 1024, 256, True, 4, False, False),
+            ("small split-off", 1024, 256, False, 4, False, False),
+            ("small L=1", 1024, 1024, True, 4, False, False),
+            ("small formant voices", 1024, 256, True, 4, True, False),
+            ("small live split-off", 1024, 256, False, 4, False, True),
+            ("preset", 5292, 1323, True, 8, False, False),
+            ("preset formant voices", 5292, 1323, True, 8, True, False),
+            ("preset live", 5292, 1323, True, 8, False, True)):
+        cfg = fid.SpectralConfig(2, block, interval, formants=formants, split=split)
         src = material.case_input(2.0, 2, seconds=2.0)
         audios = t(np.stack([np.roll(src, 977 * i, axis=-1) for i in range(len(rates))]))
-        ends = t(np.stack([fid.hop_frame_ends(cfg, 2 * h, r, SR, split=split) for r in rates]))
         mult = np.exp2(np.asarray(tones) / 12).astype(np.float32)
-        tf, mult, limit, act = (t(v) for v in (
-            np.asarray([min(1 / r, interval) for r in rates], np.float32), mult,
-            ((8000 / SR) / np.sqrt(mult)).astype(np.float32), active))
+        mult, limit, act = (t(v) for v in (
+            mult, ((8000 / SR) / np.sqrt(mult)).astype(np.float32), active))
+        fctl = formant_ctl if formants else (None, None, None)
         # a mid-stream state: one chunk on the CPU
-        (spec, tails), _ = fid.batched_fidelity_chunk(
-            cfg, fid.init_batched_fidelity_state(cfg, len(rates), "cpu"), audios,
-            ends[:, :h], tf, mult, limit, act)
-        e = ends[:, h:]
+        if live:
+            # the coupled drive: the second chunk's rolled ring is the audio,
+            # with constant ends, time factor 1 and the full-window prev
+            n = h * interval
+            state = fid.init_batched_live_fidelity_state(cfg, h, len(rates), "cpu")
+            state, _ = fid.batched_live_fidelity_chunk(cfg, state, audios[..., :n], mult, limit, act)
+            chunk = audios[..., n:2 * n]
+            (spec, tails, ring0) = state
+            state2, emit_cpu = fid.batched_live_fidelity_chunk(cfg, state, chunk, mult, limit, act)
+            g_state2, g_emit = fid.batched_live_fidelity_chunk(
+                cfg, _to_cuda(state), chunk.cuda(), mult.cuda(), limit.cuda(), act.cuda())
+            if not torch.equal(g_state2[2].cpu(), state2[2]):
+                raise AssertionError(f"{tag}: the card's input ring differs from the CPU's")
+            if not bool(torch.isfinite(g_emit).all()):
+                raise AssertionError(f"{tag}: non-finite live chunk on the card")
+            whole = _snr(emit_cpu, g_emit)
+            audios = state2[2]
+            el = audios.shape[-1]
+            e = (el - (h - torch.arange(h, dtype=torch.int32)) * interval)[None].expand(
+                len(rates), h).contiguous()
+            tf = torch.ones(len(rates))
+        else:
+            ends = t(np.stack([fid.hop_frame_ends(cfg, 2 * h, r, SR, split=split) for r in rates]))
+            tf = t(np.asarray([min(1 / r, interval) for r in rates], np.float32))
+            (spec, tails), _ = fid.batched_fidelity_chunk(
+                cfg, fid.init_batched_fidelity_state(cfg, len(rates), "cpu"), audios,
+                ends[:, :h], tf, mult, limit, act, *fctl)
+            e = ends[:, h:]
 
         snr = {}
-        cur, prev = fid._analyse_cur_prev(cfg, audios, e)
-        g = fid._analyse_cur_prev(cfg, audios.cuda(), e.cuda())
+        cur, prev = fid._analyse_cur_prev(cfg, audios, e, full_prev=live)
+        g = fid._analyse_cur_prev(cfg, audios.cuda(), e.cuda(), full_prev=live)
         snr["1 analyses cur"], snr["1 analyses prev"] = _snr(cur, g[0]), _snr(prev, g[1])
-        xs, carried = spectral.chain_inputs_hops(cfg, spec, cur, prev, tf, mult, limit)
+        xs, carried = spectral.chain_inputs_hops(cfg, spec, cur, prev, tf, mult, limit, *fctl)
         g_xs, g_carried = spectral.chain_inputs_hops(
-            cfg, cuda(spec), cur.cuda(), prev.cuda(), tf.cuda(), mult.cuda(), limit.cuda())
+            cfg, _to_cuda(spec), cur.cuda(), prev.cuda(), tf.cuda(), mult.cuda(), limit.cuda(),
+            *(None if c is None else c.cuda() for c in fctl))
         for k in xs:
             if k != "mc":
                 snr[f"2 chain inputs {k}"] = _snr(xs[k], g_xs[k])
         mc_same = float((xs["mc"] == g_xs["mc"].cpu()).double().mean())
         rng_same = bool(torch.equal(carried[0], g_carried[0].cpu()))
+        note = ""
+        if formants:
+            # the formant trackers, and that the voices did move them
+            for name, c_ema, g_ema, old in zip(("f_value_ema", "f_weighted_ema"), carried[1:],
+                                               g_carried[1:], spec[3:]):
+                snr[f"2 chain inputs {name}"] = _snr(c_ema, g_ema)
+                if torch.equal(c_ema[:2], old[:2]) or not torch.equal(c_ema[2:], old[2:]):
+                    raise AssertionError(f"{tag}: {name} moved for the wrong voices")
+            plain, _ = spectral.chain_inputs_hops(cfg, spec, cur, prev, tf, mult, limit)
+            note = (f"; the formant gain changes pred_energy by "
+                    f"{-_snr(plain['pred_energy'], xs['pred_energy']):.1f} dB relative to it")
+        if live:
+            note = f"; the whole live chunk, card against CPU from one state: {whole:.2f} dB"
         outs = fid._hop_loop(cfg, spec.prev_output, xs)
-        snr["3 hop loop"] = _snr(outs, fid._hop_loop(cfg, spec.prev_output.cuda(), cuda(xs)))
+        snr["3 hop loop"] = _snr(outs, fid._hop_loop(cfg, spec.prev_output.cuda(), _to_cuda(xs)))
         frames = fid.synthesise_frames(cfg, outs)
         emit, _ = fid._ola_emit(cfg, frames, tails, act, h)
         g_frames = fid.synthesise_frames(cfg, outs.cuda())
@@ -456,7 +591,7 @@ def device_parity() -> None:
         log(f"[parity] {tag} (block {block}, interval {interval}, L={cfg.long_step}, "
             f"S={len(rates)}, H={h}) card vs cpu, stage by stage: "
             + "; ".join(f"{k} {v:.2f} dB" for k, v in worst.values())
-            + f"; mc equal {mc_same:.6f}, rng equal {rng_same} "
+            + f"; mc equal {mc_same:.6f}, rng equal {rng_same}{note} "
             f"(bounds {PARITY_DB} dB, mc {PARITY_MC})")
         bad = {k: v for k, v in snr.items() if not v >= PARITY_DB}
         if bad or mc_same < PARITY_MC or not rng_same:
@@ -568,6 +703,40 @@ def identity_render(card: str) -> None:
         raise AssertionError(f"identity render {snr:.2f} dB <= 50 dB")
 
 
+def live_golden(name: str, golden) -> float:
+    """A coupled golden case on the card through
+    ``batched_live_fidelity_chunk``, input pushed 8 hops a chunk with
+    carried state (as tests/test_torch_golden_live.py drives it on the
+    CPU); dB against the blob's live render, skipping the latency ramp-in."""
+    import torch
+
+    from golden_wasm import material
+
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    _, semitones, channels, extras = next(c for c in material.LIVE_CASES if c[0] == name)
+    geom = material.case_render_kwargs(extras)
+    cfg = fid.SpectralConfig(channels, round(geom["block_ms"] / 1000 * SR),
+                             round(geom["interval_ms"] / 1000 * SR),
+                             split=bool(extras.get("split_computation", True)))
+    n_out = int(material.SECONDS * SR)
+    x = torch.from_numpy(material.case_input(1.0, channels)[:, :n_out]).cuda()
+    hops = 8
+    n = hops * cfg.interval
+    x = torch.nn.functional.pad(x, (0, -n_out % n))[None]
+    mult = float(np.exp2(semitones / 12.0))
+    one = lambda v: torch.tensor([v], dtype=torch.float32, device="cuda")
+    controls = (one(mult), one((material.TONALITY_HZ / SR) / np.sqrt(mult)), one(1.0))
+    state = fid.init_batched_live_fidelity_state(cfg, hops, 1, "cuda")
+    emitted = []
+    for c in range(x.shape[-1] // n):
+        state, emit = fid.batched_live_fidelity_chunk(
+            cfg, state, x[..., c * n:(c + 1) * n], *controls)
+        emitted.append(emit[0])
+    got = torch.cat(emitted, dim=-1)[..., :n_out].cpu().numpy()
+    return material.snr_db(golden[name], got, material.case_skip(extras) + cfg.interval)
+
+
 def step_pool(pool, warm: int, timed: int):
     import torch
 
@@ -582,7 +751,7 @@ def step_pool(pool, warm: int, timed: int):
         raise AssertionError("non-finite master")
     if not np.abs(master).max() > 0:
         raise AssertionError("silent master")
-    return dt, float(np.abs(master).max())
+    return dt, master
 
 
 def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> None:
@@ -592,7 +761,8 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with chainfetch_switch(kind == "preset-fused"), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -625,21 +795,23 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
             f"({us / steps / 1e3 / busy:.1%}) {name[:90]}")
 
 
-def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict) -> float:
+def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
     """Drive one pool with the launch counts set to 0 just before and read
-    just after; fails if a kernel of the pool's path was never launched.
-    Adds the counts to ``launches`` and returns ms/step."""
+    just after; fails unless each kernel of the pool's path was launched
+    its number of times a step and no other kernel at all.  Adds the
+    counts to ``launches`` and returns (ms/step, the timed steps' master)."""
     from bauklank_tpu_torch import kernels
 
     kernels.reset_launches()
-    dt, peak = step_pool(pool, warm, timed)
+    with chainfetch_switch(kind == "preset-fused"):
+        dt, master = step_pool(pool, warm, timed)
     counts = dict(kernels.LAUNCHES)
-    own = {k for ks in STAGES[pool.engine].values() for k in ks}
-    missing = sorted(k for k in own if counts[k] == 0)
-    if missing:
-        raise AssertionError(f"{kind} pool never launched {missing}")
+    want = {k: PER_STEP[kind].get(k, 0) * (warm + timed) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{kind} pool launched {counts}, not {want}")
     for k, v in counts.items():
         launches[k] += v
+    peak = float(np.abs(master).max())
     s_n, h = pool.capacity, pool.hops_per_step
     block, interval, _ = pool._sizes
     rtf = s_n * h * interval / SR / dt
@@ -649,7 +821,7 @@ def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict) -> 
         f"{shape}: {dt * 1e3:.2f} ms/step, aggregate RTF {rtf:.1f}x, master peak {peak:.4f}, "
         f"launches {counts} | {card}")
     log(f"[serve] {kind} metrics {pool.metrics()}")
-    return dt * 1e3
+    return dt * 1e3, master
 
 
 def main() -> int:
@@ -683,12 +855,26 @@ def main() -> int:
 
     # 3. kernels against their plain versions, on main-path operands
     results: dict = {}
+    gather_args = None
     for kind in ("preset", "kiosk", "fast"):
         ops: dict = {}
         pool = make_pool(kind, "cuda")
         with capture_operands(ops, pool.engine):
             pool.step(fetch=True)
         compare_kernels(ops, kind, results, mhz)
+        if pool.engine == "fidelity":
+            # kernel 6, which no step calls, on the call it would serve: the
+            # five-family gather
+            compare_kernels({"pallas_gather": ops["frac_gather"][:1]}, kind, results, mhz)
+        if kind == "preset":
+            gather_args = ops["frac_gather"][0]
+            # kernel 7: the next step of the same pool with the fused fetch
+            ops = {}
+            with chainfetch_switch(True), capture_operands(ops, "fidelity"):
+                pool.step(fetch=True)
+            if set(ops) != {"frames_windowed", "comp_cumsum", "chainfetch", "band_chain"}:
+                raise AssertionError(f"the fused step called {sorted(ops)}")
+            compare_kernels({"chainfetch": ops["chainfetch"]}, "preset-fused", results, mhz)
         if kind == "fast":
             # the envelope gathers: a step with one formant voice
             ops = {}
@@ -714,7 +900,7 @@ def main() -> int:
     from bauklank_tpu_torch.engine.fidelity import render_fidelity
 
     golden = np.load(os.path.join(ROOT, "tests", "golden", "golden_v1.npz"))
-    for name in ("r05_stp12", "r025_st0", "kiosk_r0001_st0"):
+    for name in ("r05_stp12", "r025_st0", "kiosk_r0001_st0", "r10_fp7"):
         _, rate, st, ch, extras = next(c for c in material.CASES if c[0] == name)
         t1 = time.perf_counter()
         got = render_fidelity(
@@ -722,41 +908,80 @@ def main() -> int:
             semitones=st, tonality_hz=material.TONALITY_HZ,
             seed=int(golden[name + "__seed"]) if name + "__seed" in golden.files else 1,
             device="cuda", **material.case_render_kwargs(extras))
-        snr = material.snr_db(golden[name], got, material.case_skip(extras))
+        end = int(extras.get("_compare_sec", material.SECONDS) * SR)
+        snr = material.snr_db(golden[name][..., :end], got[..., :end],
+                              material.case_skip(extras))
         log(f"[golden] {name}: {snr:.2f} dB ({time.perf_counter() - t1:.2f} s)")
         if not snr > 40.0:
             raise AssertionError(f"golden {name}: {snr:.2f} dB <= 40 dB")
+    t1 = time.perf_counter()
+    snr = live_golden("live_stp12", golden)
+    log(f"[golden] live_stp12 (coupled, 8 hops a chunk): {snr:.2f} dB "
+        f"({time.perf_counter() - t1:.2f} s)")
+    if not snr > 40.0:
+        raise AssertionError(f"golden live_stp12: {snr:.2f} dB <= 40 dB")
     identity_render(card)
 
     # 6. serving: each pool's main path, with its launch counts
-    pools = {kind: make_pool(kind, "cuda") for kind in ("preset", "kiosk", "fast")}
+    kinds = ("preset", "preset-fused", "kiosk", "fast")
+    timed = {"preset": 10, "preset-fused": 10, "kiosk": 6, "fast": 6}
+    pools = {kind: make_pool(kind, "cuda") for kind in kinds}
     launches = dict.fromkeys(kernels.LAUNCHES, 0)
-    step_ms = {kind: serve(kind, pool, 2, 10, card, launches) for kind, pool in pools.items()}
-    # the fast pool with a formant voice: three gathers a step
-    fast = pools["fast"]
-    if not fast.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
-        raise RuntimeError("formant control refused")
+    served = {kind: serve(kind, pool, 2, timed[kind], card, launches)
+              for kind, pool in pools.items()}
+    step_ms = {kind: ms for kind, (ms, _) in served.items()}
+    # the fused fetch is bit-equal, so the same tracks and controls give the same master
+    if not np.array_equal(served["preset"][1], served["preset-fused"][1]):
+        diff = float(np.abs(served["preset"][1] - served["preset-fused"][1]).max())
+        raise AssertionError(f"the fused pool's master differs from the unfused pool's by {diff}")
+    log(f"[serve] preset-fused master equals preset's bit for bit over "
+        f"{served['preset'][1].shape[-1]} samples")
+    # the fidelity preset pool with a formant voice: the envelope lookup is a
+    # third frac_gather launch a step; the fast pool: three gathers a step
+    for kind, per_step in (("preset", {**PER_STEP["preset"], "frac_gather": 3}),
+                           ("fast", {**PER_STEP["fast"], "banded_interp": 3})):
+        pool = pools[kind]
+        if not pool.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
+            raise RuntimeError("formant control refused")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        masters = [pool.step(fetch=True)[0] for _ in range(5)]
+        dt = (time.perf_counter() - t0) / 5
+        counts = dict(kernels.LAUNCHES)
+        if not np.isfinite(np.concatenate(masters, axis=-1)).all():
+            raise AssertionError(f"non-finite {kind} master with a formant voice")
+        if counts != {k: 5 * per_step.get(k, 0) for k in counts}:
+            raise AssertionError(f"{kind} formant steps launched {counts}, not 5 x {per_step}")
+        if kind == "preset" and not float(pool.states[0].f_value_ema[5]) > 0:
+            raise AssertionError("the formant voice's f0 tracker did not move")
+        for k, v in counts.items():
+            launches[k] += v
+        log(f"[serve] {kind} with a formant voice: {dt * 1e3:.2f} ms/step over 5 steps, "
+            f"launches {counts} | {card}")
+        # back to no formant voice before the profile
+        pool.apply_set("s05", "formantSemitones", 0.0, lookahead=0.0)
+        pool.step(fetch=True)
+    # kernel 6 is on no step's path in either package: driven directly, once,
+    # through its entry point, on the preset pool's five-family operands
+    from bauklank_tpu_torch.ops.gather import pallas_gather
+
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    masters = [fast.step(fetch=True)[0] for _ in range(5)]
-    dt = (time.perf_counter() - t0) / 5
+    out = pallas_gather(*gather_args)
+    torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
-    if not np.isfinite(np.concatenate(masters, axis=-1)).all():
-        raise AssertionError("non-finite master with a formant voice")
-    if counts["banded_interp"] != 15 or counts["frames_windowed"] != 5:
-        raise AssertionError(f"formant steps launched {counts}, not 3 gathers a step")
-    for k, v in counts.items():
-        launches[k] += v
-    log(f"[serve] fast with a formant voice: {dt * 1e3:.2f} ms/step over 5 steps, "
-        f"launches {counts} | {card}")
-    # back to no formant voice before the profile
-    fast.apply_set("s05", "formantSemitones", 0.0, lookahead=0.0)
-    fast.step(fetch=True)
+    if counts != {**dict.fromkeys(counts, 0), "pallas_gather": 1}:
+        raise AssertionError(f"the direct pallas_gather call launched {counts}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite pallas_gather output")
+    launches["pallas_gather"] += 1
+    log(f"[serve] pallas_gather (on no pool's path; called directly on "
+        f"{tuple(gather_args[0].shape)} at {tuple(gather_args[1].shape)}): launches {counts}")
+    del gather_args, out
 
     # 7. where the time goes
     for kind, pool in pools.items():
         where_time_goes(kind, pool, 5, step_ms[kind], card)
-    del pools, fast
+    del pools, pool
     torch.cuda.empty_cache()
 
     log(json.dumps({"kernels": [

@@ -12,11 +12,14 @@ bound.  The carried state is held to a relative bound for the same
 reason; the inactive stream's state must stay exactly frozen.
 
 The overlap-1 geometry and the resume from a JAX mid-stream state are in
-test_torch_fidelity_resume.py, to keep each file's run short.
+test_torch_fidelity_resume.py, formant voices in
+test_torch_fidelity_formants.py and the coupled (live) drive in
+test_torch_live.py, to keep each file's run short.
 """
 
 from __future__ import annotations
 
+import pathlib
 import sys
 
 import numpy as np
@@ -127,9 +130,21 @@ def test_timepred_division_matches_xla():
 
 
 def test_formants_refused():
+    """Nothing of the formant path is refused any more: a config with
+    ``formants`` set steps with and without the controls (without them the
+    formant chain does not run, as in JAX), and no ``NotImplementedError``
+    about formants is left in the port's sources."""
     cfg = tfid.SpectralConfig(2, 1024, 256, formants=True)
     state = tfid.init_batched_fidelity_state(cfg, 1, "cpu")
     one = torch.ones(1)
-    with pytest.raises(NotImplementedError, match="formant"):
-        tfid.batched_fidelity_chunk(cfg, state, torch.zeros(1, 2, 4096),
-                                    torch.full((1, 2), 3000), one, one, one, one)
+    audio = _t(material.case_input(1.0, 2, seconds=0.2)[None, :, :4096])
+    args = (audio, torch.full((1, 2), 3000), one, one, one, one)
+    _, plain = tfid.batched_fidelity_chunk(cfg, state, *args)
+    _, shifted = tfid.batched_fidelity_chunk(cfg, state, *args, one * 1.5, one * 0, one * 0)
+    assert torch.isfinite(shifted).all() and plain.abs().max() > 0
+    assert not torch.equal(plain, shifted)
+    pkg = pathlib.Path(tfid.__file__).parents[1]
+    for path in pkg.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            assert not ("NotImplementedError" in line and "ormant" in line), (path.name, line)
+        assert "FORMANTS_TODO" not in path.read_text(), path.name

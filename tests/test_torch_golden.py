@@ -4,12 +4,15 @@
 tests/test_golden_wasm.py drives the JAX serving form).  Bound: > 40 dB,
 the JAX package's own bar.
 
-Tier-1 runs four cases, one per file so that no file runs long:
+Tier-1 runs six cases, one per file so that no file runs long:
 ``r05_stp12`` here, the overlap-1 kiosk point in
 test_torch_golden_kiosk.py, ``r025_st0`` (MINSTD carried across chunks)
-in test_torch_golden_minstd.py and ``r10_stp12_splitoff`` in
-test_torch_golden_splitoff.py.  The other
-non-formant cases carry the ``slow`` marker: about 35 s of CPU each.
+in test_torch_golden_minstd.py, ``r10_stp12_splitoff`` in
+test_torch_golden_splitoff.py, the formant case ``r10_fp7`` in
+test_torch_golden_formant.py and the coupled case ``live_stp12`` in
+test_torch_golden_live.py.  The other file-mode cases, formant ones
+included, carry the ``slow`` marker here (about 35 s of CPU each), the
+other coupled cases in test_torch_golden_live.py.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ from golden_wasm import material  # noqa: E402
 
 torch.set_num_threads(1)
 FIXTURES = pathlib.Path(__file__).parent / "golden" / "golden_v1.npz"
-TIER1 = ("r05_stp12", "kiosk_r0001_st0", "r025_st0", "r10_stp12_splitoff")
-FORMANT_KEYS = ("formant_semitones", "formant_compensation", "formant_base_hz")
+TIER1 = ("r05_stp12", "kiosk_r0001_st0", "r025_st0", "r10_stp12_splitoff", "r10_fp7")
 
 
 def golden_snr(name: str) -> float:
@@ -53,8 +55,7 @@ def test_golden_tier1(name):
     assert snr > 40.0, f"{name}: {snr:.1f} dB"
 
 
-SLOW_CASES = [c[0] for c in material.CASES
-              if c[0] not in TIER1 and not any(k in c[4] for k in FORMANT_KEYS)]
+SLOW_CASES = [c[0] for c in material.CASES if c[0] not in TIER1]
 
 
 @pytest.mark.slow

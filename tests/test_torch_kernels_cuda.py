@@ -13,9 +13,10 @@ import torch
 from bauklank_tpu_torch import kernels
 from bauklank_tpu_torch.kernels import build
 from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
+from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
 from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
-from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref
+from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
 from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +72,50 @@ def test_frac_gather(dev):
     assert torch.equal(got, frac_gather_ref(planes, pos))
 
 
+def test_pallas_gather(dev):
+    """Kernel 6's own entry point and count, at a band grid and a K the
+    TPU kernel refuses; the frac_gather count stays where it was."""
+    rng = np.random.default_rng(6)
+    planes = _t((rng.standard_normal((4, 250, 3)) * 10.0 ** rng.uniform(-12, 12, (4, 250, 3))
+                 ).astype(np.float32), dev)
+    pos = rng.uniform(-3, 253, (4, 777)).astype(np.float32)
+    pos[:, :6] = [-0.5, -1.0, 249.0, 249.5, 250.0, 7.0]
+    pos = _t(pos, dev)
+    before = kernels.LAUNCHES["frac_gather"]
+    got = _launched("pallas_gather", lambda: pallas_gather(planes, pos))
+    assert kernels.LAUNCHES["frac_gather"] == before
+    assert torch.equal(got, frac_gather_ref(planes, pos))
+
+
+@pytest.mark.parametrize("b_n,long_step,c_n", [(3072, 5, 2), (250, 4, 1), (192, 1, 3)],
+                         ids=["stereo", "mono", "three_channels"])
+def test_chainfetch(dev, b_n, long_step, c_n):
+    """A non-monotone map with rows on the edges, steps 0.5 to 2: equal to
+    the plain version and to the two frac_gather launches it replaces, bit
+    for bit, on the vector paths (1 and 2 channels) and the scalar one."""
+    rng = np.random.default_rng(b_n)
+    n = 6
+    spec = _t(rng.standard_normal((n, b_n, 2 * c_n)).astype(np.float32), dev)
+    prev = _t(rng.standard_normal((n, b_n, 2 * c_n)).astype(np.float32), dev)
+    energy = _t(np.abs(rng.standard_normal((n, b_n, c_n))).astype(np.float32), dev)
+    ib = rng.uniform(0, b_n - 1e-3, (n, b_n)).astype(np.float32)
+    ib[:, :4] = [0.0, b_n - 1.0, b_n - 0.51, 1.0]
+    ib[3] = np.sort(ib[3])                                        # one monotone row
+    ib = _t(ib, dev)
+    step = _t(np.asarray([0.5, 0.8, 1.0, 1.3, 1.7, 2.0], np.float32), dev)
+    c = step[:, None]
+    zeros = lambda k: torch.zeros((n, k), device=dev)
+    us = torch.cat([ib[:, 1:], zeros(1)], dim=1) - c
+    ul = torch.cat([ib[:, long_step:], zeros(long_step)], dim=1) - c * long_step
+    five, comb = _launched("chainfetch",
+                           lambda: chainfetch(spec, prev, energy, ib, us, ul, step, long_step))
+    want5, wantc = chainfetch_ref(spec, prev, energy, ib, us, ul, step, long_step)
+    assert torch.equal(five, want5) and torch.equal(comb, wantc)
+    pos5 = torch.cat([ib, ib - c, ib - c * long_step, us, ul], dim=1).contiguous()
+    assert torch.equal(five, frac_gather(spec, pos5))
+    assert torch.equal(comb, frac_gather(torch.cat([prev, energy], dim=2).contiguous(), ib))
+
+
 @pytest.mark.parametrize("long_step", [5, 1])
 def test_band_chain(dev, long_step):
     rng = np.random.default_rng(long_step)
@@ -104,3 +149,12 @@ def test_wrappers_refuse_mixed_devices(dev):
         frac_gather(torch.zeros(2, 8, 4, device=dev), torch.zeros(2, 5))
     with pytest.raises(ValueError, match="contiguous"):
         comp_cumsum(torch.zeros(3, 8, 4, device=dev).transpose(1, 2))
+    z = lambda *shape: torch.zeros(*shape, device=dev)
+    with pytest.raises(ValueError, match="devices"):
+        chainfetch(z(2, 8, 4), z(2, 8, 4), z(2, 8, 2), z(2, 8), z(2, 8), z(2, 8),
+                   torch.zeros(2), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        chainfetch(z(2, 8, 4), z(2, 8, 4), z(2, 8, 2), z(8, 2).t(), z(2, 8), z(2, 8), z(2), 2)
+    with pytest.raises(ValueError, match="aligned"):
+        chainfetch(z(2, 8, 4), z(2, 8, 4), z(2, 8, 2), z(17)[1:].view(2, 8), z(2, 8), z(2, 8),
+                   z(2), 2)

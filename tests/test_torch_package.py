@@ -22,9 +22,10 @@ from bauklank_tpu_torch.engine.offline import frame_ends_for, stretch_offline
 from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.kernels import build
 from bauklank_tpu_torch.kernels.bandchain import band_chain
+from bauklank_tpu_torch.kernels.chainfetch import chainfetch
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
 from bauklank_tpu_torch.kernels.frames import frames_windowed
-from bauklank_tpu_torch.kernels.gather import frac_gather
+from bauklank_tpu_torch.kernels.gather import frac_gather, pallas_gather
 from bauklank_tpu_torch.kernels.interp import banded_interp
 from bauklank_tpu_torch.ops import mdft
 from bauklank_tpu_torch.serve.pool import StreamPool
@@ -52,7 +53,8 @@ def test_no_jax_import(path):
 
 def test_kernel_sources_and_flags():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
-    assert names == ["bandchain.cu", "compsum.cu", "frac_gather.cu", "frames.cu", "interp.cu"]
+    assert names == ["bandchain.cu", "chainfetch.cu", "compsum.cu", "frac_gather.cu",
+                     "frames.cu", "interp.cu"]
     for p in (PKG / "csrc").glob("*.cu"):
         head = p.read_text()[:2000]
         assert "Replaces the TPU kernel bauklank_tpu/ops/pallas/" in head, p.name
@@ -61,6 +63,18 @@ def test_kernel_sources_and_flags():
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert set(build.SIGNATURES) == {f"bk_{k}" for k in kernels.LAUNCHES}
+    assert set(kernels.LAUNCHES) == {
+        "frames_windowed", "comp_cumsum", "frac_gather", "band_chain", "banded_interp",
+        "pallas_gather", "chainfetch"}
+    # one device function serves kernels 3 and 6; the fused fetch shares its taps
+    gather = (PKG / "csrc" / "frac_gather.cu").read_text()
+    assert "bk_frac_gather" in gather and "bk_pallas_gather" in gather
+    assert gather.count("__global__") == 1
+    assert "bauklank_tpu/ops/pallas/selection.py" in gather[:2000]
+    for name in ("frac_gather.cu", "chainfetch.cu"):
+        assert '#include "frac_tap.cuh"' in (PKG / "csrc" / name).read_text()
+    # a shared header is part of the library's hash: editing it rebuilds
+    assert PKG / "csrc" / "frac_tap.cuh" in build._headers()
 
 
 def _step():
@@ -78,6 +92,18 @@ def test_cpu_step_launches_no_kernel():
     kernels.reset_launches()
     emit = _step()
     assert emit.shape == (2, 2, 512) and torch.isfinite(emit).all()
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
+
+
+def test_cpu_fused_step_launches_no_kernel(monkeypatch):
+    """The fused route on CPU tensors takes kernel 7's plain version."""
+    monkeypatch.setenv("BAUKLANK_CHAINFETCH", "1")
+    routed = []
+    fetch = spectral.chainfetch
+    monkeypatch.setattr(spectral, "chainfetch", lambda *a: (routed.append(1), fetch(*a))[1])
+    kernels.reset_launches()
+    emit = _step()
+    assert routed == [1] and torch.isfinite(emit).all()
     assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
@@ -187,6 +213,26 @@ def test_wrappers_refuse_bad_operands():
         band_chain(f32(9, 16, 4), f32(2, 6, 16, 4), 0)
     with pytest.raises(ValueError, match="device"):
         frac_gather(f32(2, 8, 4), f32(2, 5, device="meta"))
+    with pytest.raises(ValueError, match="pallas_gather: planes and pos disagree"):
+        pallas_gather(f32(2, 8, 4), f32(3, 5))
+    with pytest.raises(ValueError, match="pallas_gather: .*float32"):
+        pallas_gather(f32(2, 8, 4), f32(2, 5, dtype=torch.float64))
+    fetch = lambda **kw: chainfetch(*({
+        "spec": f32(2, 8, 4), "prev": f32(2, 8, 4), "energy": f32(2, 8, 2), "ib": f32(2, 8),
+        "us": f32(2, 8), "ul": f32(2, 8), "step": f32(2), "long_step": 2} | kw).values())
+    assert [tuple(x.shape) for x in fetch()] == [(2, 40, 4), (2, 8, 6)]
+    with pytest.raises(ValueError, match="float32"):
+        fetch(ib=f32(2, 8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="disagree"):
+        fetch(prev=f32(2, 8, 2))
+    with pytest.raises(ValueError, match="disagree"):
+        fetch(step=f32(3))
+    with pytest.raises(ValueError, match="expects"):
+        fetch(energy=f32(2, 8))
+    with pytest.raises(ValueError, match="long_step"):
+        fetch(long_step=0)
+    with pytest.raises(ValueError, match="device"):
+        fetch(us=f32(2, 8, device="meta"))
 
 
 def test_nvcc_lookup_fails_loudly_without_a_toolchain(monkeypatch, tmp_path):

@@ -4,6 +4,8 @@ surface — tracks, voice starts, and ``set`` messages parsed with
 ``protocol.parse_line`` and mapped to pool keys as the server maps them
 (``serve/server.py``: tone -> semitones, volume -> volumePercent).
 
+A fidelity pool with formant voices is held to the same bound.
+
 Bound: master SNR >= 60 dB.  The JAX pool step is one jitted graph,
 whose fused arithmetic rounds otherwise than the eager form the port
 mirrors; the fidelity renderer amplifies those ulps over the hops, and
@@ -41,7 +43,10 @@ MESSAGES = [
 ]
 
 
-def _drive(pool):
+def _drive(pool, formants=False):
+    """Three voices, four steps, the ``set`` messages at step 1; with
+    ``formants`` also a formant shift on s02 and formant compensation on
+    s01 (under its pitch shift), both on auto f0 and in force at once."""
     x = material.case_input(2.0, 2, seconds=1.0)
     for i, (rate, st) in enumerate([(0.5, 0.0), (1.3, 3.0), (1.0, 0.0)]):
         pool.load_track(f"s{i:02d}", np.roll(x, 977 * i, axis=-1))
@@ -54,6 +59,9 @@ def _drive(pool):
                 key = SERVER_KEYS.get(msg["key"], msg["key"])
                 ok = pool.apply_set(msg["channel"], key, msg["value"])
                 assert ok == (msg["value"] == msg["value"])   # NaN refused
+            if formants:
+                assert pool.apply_set("s02", "formantSemitones", 4.0, lookahead=0.0)
+                assert pool.apply_set("s01", "formantCompensation", True, lookahead=0.0)
         master, _ = pool.step(fetch=True)
         masters.append(np.asarray(master))
     return np.concatenate(masters, axis=-1)
@@ -74,15 +82,46 @@ def test_pool_matches_jax_pool():
     assert m["steps"] == 4 and m["rtf"] > 0
 
 
+def test_fidelity_pool_with_a_formant_voice_matches_jax_pool(monkeypatch):
+    from bauklank_tpu_torch.serve import pool as pool_mod
+
+    kw = dict(capacity=3, sample_rate=44100.0, channels=2, max_track_sec=2.0,
+              hops_per_step=8, engine="fidelity")
+    want = _drive(JStreamPool(config=JStretchConfig(block=1024, interval=256), **kw), True)
+    seen = []
+    step = pool_mod._pool_step_fidelity
+    monkeypatch.setattr(pool_mod, "_pool_step_fidelity",
+                        lambda scfg, *a: (seen.append((scfg.formants, a[-1])), step(scfg, *a))[1])
+    pool = StreamPool(config=StretchConfig(block=1024, interval=256), device="cpu", **kw)
+    got = _drive(pool, formants=True)
+    assert got.shape == want.shape == (2, 4 * 8 * 256)
+    assert np.abs(want).max() > 1e-3
+    snr = 10 * np.log10(np.mean(want ** 2) / max(np.mean((want - got) ** 2), 1e-30))
+    assert snr >= 60.0, snr
+    # the formant chain runs from the step the control takes effect, and
+    # every step is told its regime (all rates >= 0.5: deterministic)
+    formants = [f for f, _ in seen]
+    assert formants == [False, True, True, True]
+    assert all(det is True for _, det in seen)
+    spec = pool.states[0]
+    assert (spec.f_value_ema[1:] != 0).all() and spec.f_value_ema[0] == 0
+    # and they are audible: the same drive without them differs
+    plain = _drive(StreamPool(config=StretchConfig(block=1024, interval=256), device="cpu", **kw))
+    assert 10 * np.log10(np.mean(plain ** 2) / np.mean((plain - got) ** 2)) < 30.0
+
+
 def test_pool_refuses_fidelity_formants_and_unknown_engine():
+    """A fidelity pool takes formant controls (it no longer refuses them);
+    an unknown engine is still refused."""
     pool = StreamPool(capacity=2, config=StretchConfig(block=1024, interval=256),
                       max_track_sec=1.0, hops_per_step=4, engine="fidelity", device="cpu")
-    pool.load_track("s00", [np.zeros(44100, np.float32)])
+    pool.load_track("s00", [material.case_input(1.0, 1, seconds=0.5)[0]])
     pool.start("s00", rate=1.0)
     pool.step()
     assert pool.apply_set("s00", "formantSemitones", 4.0, lookahead=0.0)
-    with pytest.raises(NotImplementedError, match="formant"):
-        pool.step()
+    master, _ = pool.step(fetch=True)
+    assert np.isfinite(master).all() and np.abs(master).max() > 0
+    assert float(pool.states[0].f_value_ema[0]) != 0.0
     with pytest.raises(ValueError, match="unknown engine"):
         StreamPool(capacity=1, engine="phase-locked", device="cpu")
 
