@@ -44,56 +44,6 @@
 
 namespace {
 
-// P consecutive floats, moved at the widest vector the row stride allows
-// (the wrapper checks that every base pointer is 16-byte aligned)
-template <int P>
-__device__ __forceinline__ void load_row(const float* __restrict__ src, float (&v)[P]) {
-  if constexpr (P % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < P / 4; ++i) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(src) + i);
-      v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z, v[4 * i + 3] = x.w;
-    }
-  } else if constexpr (P % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < P / 2; ++i) {
-      const float2 x = __ldg(reinterpret_cast<const float2*>(src) + i);
-      v[2 * i] = x.x, v[2 * i + 1] = x.y;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) v[i] = __ldg(src + i);
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void store_row(float* __restrict__ dst, const float (&v)[P]) {
-  if constexpr (P % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < P / 4; ++i)
-      reinterpret_cast<float4*>(dst)[i] =
-          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-  } else if constexpr (P % 2 == 0) {
-#pragma unroll
-    for (int i = 0; i < P / 2; ++i)
-      reinterpret_cast<float2*>(dst)[i] = make_float2(v[2 * i], v[2 * i + 1]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < P; ++i) dst[i] = v[i];
-  }
-}
-
-// out[0:P] = the interpolation of the rows of `base` (row stride P) at `tap`
-template <int P>
-__device__ __forceinline__ void mix_row(const float* __restrict__ base,
-                                        const bk::FracTap& tap, float* out) {
-  float a0[P], a1[P];
-  load_row<P>(base + static_cast<long long>(tap.c0) * P, a0);
-  load_row<P>(base + static_cast<long long>(tap.c1) * P, a1);
-#pragma unroll
-  for (int q = 0; q < P; ++q) out[q] = bk::frac_mix(a0[q], a1[q], tap);
-}
-
 // the five spec positions of band t (row n): pred, down_s, down_l, us, ul
 __device__ __forceinline__ void family_positions(float ib, float c, int long_step,
                                                  float us, float ul, float (&pos)[5]) {
@@ -132,13 +82,13 @@ __global__ void chainfetch_kernel(const float* __restrict__ spec,
     const bk::FracTap tap = bk::frac_tap(pos[f], b_n);
     if (f == 0) tap0 = tap;
     float out[PS];
-    mix_row<PS>(srow, tap, out);
-    store_row<PS>(frow + (static_cast<long long>(f) * b_n + k) * PS, out);
+    bk::mix_row<PS>(srow, tap, out);
+    bk::store_row<PS>(frow + (static_cast<long long>(f) * b_n + k) * PS, out);
   }
   float out[3 * C];
-  mix_row<PS>(prev + row0 * PS, tap0, out);
-  mix_row<C>(energy + row0 * C, tap0, out + PS);
-  store_row<3 * C>(comb + t * 3 * C, out);
+  bk::mix_row<PS>(prev + row0 * PS, tap0, out);
+  bk::mix_row<C>(energy + row0 * C, tap0, out + PS);
+  bk::store_row<3 * C>(comb + t * 3 * C, out);
 }
 
 // any channel count: the same arithmetic, one float at a time

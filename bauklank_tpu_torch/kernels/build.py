@@ -44,6 +44,7 @@ SIGNATURES = {
     "bk_chainfetch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "bk_band_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
     "bk_banded_interp": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bk_banded_interp_c": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,10 @@ entry points over one device function:
   not exist on the card: every shape is served.
 
 Each has its own C entry point and its own launch count;
-:func:`frac_gather_ref` is the plain version of both.
+:func:`frac_gather_ref` is the plain version of both.  The device function
+knows P at compile time for P in {1, 2, 3, 4, 6} (one or two channels) and
+moves rows as 8- or 16-byte vectors; any other P takes its scalar
+kernel.  N * K * P may exceed 2^31 elements (64-bit offsets).
 """
 
 from __future__ import annotations
@@ -55,7 +58,11 @@ def _gather(name: str, planes: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
         return frac_gather_ref(planes, pos)
     require(planes.is_contiguous() and pos.is_contiguous(), name,
             "operands must be contiguous")
+    # rows of planes, positions and outputs move as float4 or float2
+    require(planes.data_ptr() % 16 == 0 and pos.data_ptr() % 16 == 0, name,
+            "operands must be 16-byte aligned")
     n_n, b_n, p_n = planes.shape
+    require(b_n >= 1, name, "planes have no bands")
     k_n = pos.shape[1]
     out = torch.empty((n_n, k_n, p_n), dtype=torch.float32, device=planes.device)
     err = getattr(library(), f"bk_{name}")(

@@ -8,9 +8,10 @@ their character.  Frequencies are in cycles/sample (Nyquist = 0.5).
 The functions are elementwise and broadcast: batched callers pass the
 per-stream factor and limit as ``[S, 1]``.  The two gathers read every
 row of stream ``s`` at that stream's positions through kernel 5,
-``banded_interp`` (x ``[S, P, bins]``, pos ``[S, bins_out]``), in place of
-``_interp_real``'s tiled matmuls and its TPU branch.  Where the window of
-768 (+128) bands covers a tile's taps this is the exact linear
+``banded_interp`` (x ``[S, P, bins]``, pos ``[S, bins_out]``; complex
+spectra through its interleaved entry point, with no planar copy), in
+place of ``_interp_real``'s tiled matmuls and its TPU branch.  Where the
+window of 768 (+128) bands covers a tile's taps this is the exact linear
 interpolation; below about -31 semitones a tile spans more than the
 window and its outer taps read 0, as in both JAX forms (ROADMAP "Faults
 found").
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from bauklank_tpu_torch.kernels.interp import TILE, banded_interp
+from bauklank_tpu_torch.kernels.interp import TILE, banded_interp, banded_interp_complex
 from bauklank_tpu_torch.ops.mdft import cabs
 
 __all__ = [
@@ -64,6 +65,15 @@ def source_positions(band_freqs: torch.Tensor, factor, limit, block: int):
     return pos.to(torch.float32), (band_freqs - f_in).to(torch.float32)
 
 
+def _tile_padded(pos: torch.Tensor) -> torch.Tensor:
+    """pos [S, bins_out] padded to whole 128-band tiles by repeating the
+    last position (the padded tile stays monotone), contiguous."""
+    pad = (-pos.shape[-1]) % TILE
+    if pad:
+        pos = torch.cat([pos, pos[:, -1:].expand(pos.shape[0], pad)], dim=1)
+    return pos.contiguous()
+
+
 def gather_fractional_real(x: torch.Tensor, pos: torch.Tensor, oob: str = "clamp") -> torch.Tensor:
     """Linear interpolation of a real array along its last axis: x [S, ...,
     bins], pos [S, bins_out] monotone -> [S, ..., bins_out].  ``oob="zero"``
@@ -73,21 +83,20 @@ def gather_fractional_real(x: torch.Tensor, pos: torch.Tensor, oob: str = "clamp
     bo = pos.shape[-1]
     if oob == "clamp":
         pos = torch.clamp(pos, 0.0, float(bins - 1))
-    pad = (-bo) % TILE
-    if pad:  # repeat the last position: the padded tile stays monotone
-        pos = torch.cat([pos, pos[:, -1:].expand(s_n, pad)], dim=1)
-    out = banded_interp(x.reshape(s_n, -1, bins).contiguous(), pos.contiguous(), WINDOW)
-    if pad:
-        out = out[..., :bo]
-    return out.reshape(x.shape[:-1] + (bo,))
+    out = banded_interp(x.reshape(s_n, -1, bins).contiguous(), _tile_padded(pos), WINDOW)
+    return out[..., :bo].reshape(x.shape[:-1] + (bo,))
 
 
 def gather_fractional(spec: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Complex linear interpolation of spectra at fractional band positions:
-    spec [S, ..., bins] complex, pos [S, bins_out]; out-of-range reads 0."""
-    parts = torch.stack([spec.real, spec.imag], dim=1)          # [S, 2, ..., bins]
-    out = gather_fractional_real(parts, pos, "zero")
-    return torch.complex(out[:, 0], out[:, 1])
+    spec [S, ..., bins] complex64, pos [S, bins_out]; out-of-range reads 0.
+    The rows stay interleaved (re, im) through the kernel: no planar copy
+    of the spectra and none of the result."""
+    s_n, bins = spec.shape[0], spec.shape[-1]
+    bo = pos.shape[-1]
+    x = torch.view_as_real(spec.reshape(s_n, -1, bins).resolve_conj().contiguous())
+    out = torch.view_as_complex(banded_interp_complex(x, _tile_padded(pos), WINDOW))
+    return out[..., :bo].reshape(spec.shape[:-1] + (bo,))
 
 
 def unit(z: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:

@@ -13,11 +13,14 @@ Phases (any failure raises and exits non-zero without the result line):
    (``BAUKLANK_CHAINFETCH=1``: kernel 7, also held bit-equal to the two
    frac_gather launches it replaces), of the fidelity kiosk pool (S=64,
    H=4, 200/200 ms, rate 0.001) and of the fast preset pool (S=128, H=32,
-   120/30 ms; the envelope gathers from a step with one formant voice),
-   with both times, the least time the card could take (``bound``) and,
+   120/30 ms; the envelope gathers from a step with one formant voice; so
+   is the fidelity formant chain's one-plane gather), with both times,
+   the least time the card could take (``bound``) and,
    where one PyTorch call computes the same function, that call's time;
    ``pallas_gather``, which no step calls, on the fidelity pools'
-   five-family operands;
+   five-family operands; the interleaved-complex entry point of
+   ``banded_interp`` also against the planar one on the stacked copy of its
+   rows (bit-equal), which is what ``grid_sample`` is timed on;
 4. each stage of both engines' steps on the card against the same stage
    on the host CPU, fed the same inputs (the CPU path is the one the
    tests hold against the JAX package): the MDFT within a relative bound,
@@ -39,7 +42,8 @@ Phases (any failure raises and exits non-zero without the result line):
    the fast pool with a formant voice, and ``pallas_gather`` driven
    directly, once;
 7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
-   pool, split by the step's stages (host and device time each) and
+   pool, split by the step's stages (host and device time each), the
+   PyTorch ops that take most device time inside the gather stage, and
    the card's busy share.
 
 It prints one JSON line of per-kernel results, the ``nvidia-smi`` line,
@@ -50,6 +54,8 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import json
 import os
 import subprocess
@@ -89,6 +95,9 @@ STAGES = {
              "fast.rotation_scan": (),
              "fast.synthesis": ()},
 }
+# the stage whose PyTorch ops the profile lists one by one: the one around
+# this engine's gather kernels
+GATHER_STAGE = {"fidelity": "fidelity.chain_inputs", "fast": "fast.hop_factors"}
 # the kernels each served pool launches every step, and how often; every
 # other count must stay 0 (the fused route trades the two frac_gather
 # launches for one chainfetch; H launches of the band chain)
@@ -123,7 +132,8 @@ FP32_OPS_PER_S = 67e12
 # float32 operations per output, counted from each plain version
 # (band_chain: per band and stream, 26 for the leader plus 25 a channel)
 OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
-                  "banded_interp": 3, "pallas_gather": 3, "chainfetch": 3}
+                  "banded_interp": 3, "banded_interp_complex": 3, "pallas_gather": 3,
+                  "chainfetch": 3}
 # the dependent float32 operations one step of a chain waits on (one
 # band of the band chain, one TwoSum of the compensated sum), each at
 # least the 4-cycle latency of a float32 add or multiply
@@ -150,14 +160,43 @@ def max_sm_mhz() -> float:
     return float(out.stdout.strip().splitlines()[0])
 
 
+# device work queued ahead of a timed run: passes over a 256 MB buffer,
+# ~0.17 ms each at the card's memory rate
+STALL_PASSES = 24
+L2_BYTES = 50e6
+
+
+@functools.lru_cache(maxsize=1)
+def _stall_buffer():
+    import torch
+
+    return torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+
+
+def cold_sets(args, nbytes: int) -> list:
+    """``args`` and enough copies of its tensors that a run cycling through
+    them moves three L2 sizes before it meets a set again: a call whose
+    operands and result would fit the 50 MB L2 is then timed against device
+    memory, as the step's call finds them, not against the cache."""
+    copies = 0 if nbytes >= 3 * L2_BYTES else min(int(3 * L2_BYTES // nbytes), 15)
+    clone = lambda a: a.clone() if hasattr(a, "clone") else a
+    return [args] + [tuple(map(clone, args)) for _ in range(copies)]
+
+
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events).  A
+    few milliseconds of other device work are queued first, so that the
+    host has the launches enqueued before the card reaches them: a call
+    shorter than its wrapper's host time (~30 us) is then timed on the
+    card, not on the host."""
     import torch
 
     for _ in range(warm):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    for _ in range(STALL_PASSES):
+        _stall_buffer().add_(1.0)
     start.record()
     for _ in range(reps):
         fn()
@@ -170,9 +209,10 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 def capture_operands(store: dict, engine: str):
     """Record the first operands each kernel wrapper gets on the main path
     (the engine modules hold the wrappers by name).  frac_gather keeps its
-    first two call shapes (the five-family and the prev|energy gather),
-    banded_interp its first three (the spectra, and with formants on the
-    natural and the target envelope)."""
+    first three call shapes (the five-family and the prev|energy gather
+    and, with a formant voice, the envelope lookup), banded_interp its two
+    entry points' (the complex spectra; with formants on the natural and
+    the target envelope)."""
     from bauklank_tpu_torch.engine import core, fidelity, spectral
     from bauklank_tpu_torch.ops import pitchmap
 
@@ -181,8 +221,9 @@ def capture_operands(store: dict, engine: str):
                  (spectral, "frac_gather"), (spectral, "chainfetch"),
                  (spectral, "band_chain")]
     else:
-        sites = [(core, "frames_windowed"), (pitchmap, "banded_interp")]
-    keep = {"frac_gather": 2, "banded_interp": 3}
+        sites = [(core, "frames_windowed"), (pitchmap, "banded_interp"),
+                 (pitchmap, "banded_interp_complex")]
+    keep = {"frac_gather": 3, "banded_interp": 2}
     saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
 
     def recorder(name, fn):
@@ -322,10 +363,11 @@ def bound(name: str, args) -> tuple[float, str, int, int]:
         planes, pos = args
         out = pos.numel() * planes.shape[2]
         need = _taps_needed(pos, planes.shape[1]) * planes.shape[2] + pos.numel()
-    elif name == "banded_interp":
+    elif name in ("banded_interp", "banded_interp_complex"):
         x, pos = args[0], args[1]
-        out = pos.numel() * x.shape[1]
-        need = _taps_needed(pos, x.shape[2]) * x.shape[1] + pos.numel()
+        width = x.shape[1] * (2 if name == "banded_interp_complex" else 1)
+        out = pos.numel() * width
+        need = _taps_needed(pos, x.shape[2]) * width + pos.numel()
     else:  # band_chain
         lead, chan = args[0], args[1]
         out = chan.shape[0] * 2 * lead.shape[1] * lead.shape[2]
@@ -380,7 +422,8 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
     from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
     from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
     from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
-    from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
+    from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
+                                                   banded_interp_ref)
 
     pairs = {
         "frames_windowed": (frames_windowed, frames_windowed_ref),
@@ -388,6 +431,7 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
         "frac_gather": (frac_gather, frac_gather_ref),
         "band_chain": (band_chain, band_chain_ref),
         "banded_interp": (banded_interp, banded_interp_ref),
+        "banded_interp_complex": (banded_interp_complex, banded_interp_ref),
         "pallas_gather": (pallas_gather, frac_gather_ref),
         "chainfetch": (chainfetch, chainfetch_ref),
     }
@@ -409,10 +453,29 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 if not all(torch.equal(g, t) for g, t in zip(got, two)):
                     raise AssertionError(f"chainfetch ({tag}) differs from the two frac_gather "
                                          "launches it replaces")
-            ms = cuda_ms(lambda: kern(*args), reps=20, warm=2)
+            lib_name, lib_args, lib_want, copy_note = name, args, got[0], ""
+            if name == "banded_interp_complex":
+                # and against the planar entry point on the stacked copy of the
+                # same rows, which is also what grid_sample can be given; the
+                # copy is made once, outside every timing
+                x, pos, window = args
+                half = x.shape[1]
+                stacked = torch.cat([x[..., 0], x[..., 1]], dim=1).contiguous()
+                planar = banded_interp(stacked, pos, window)
+                if not (torch.equal(got[0][..., 0], planar[:, :half])
+                        and torch.equal(got[0][..., 1], planar[:, half:])):
+                    raise AssertionError(f"banded_interp_complex ({tag}) differs from the "
+                                         "planar kernel on the stacked rows")
+                planar_ms = cuda_ms(lambda: banded_interp(stacked, pos, window), reps=20, warm=2)
+                copy_note = (f"; planar kernel on the stacked copy {tuple(stacked.shape)} "
+                             f"{planar_ms:.4f} ms, equal bit for bit (grid_sample is timed on "
+                             "that copy; making the copy is in neither time)")
+                lib_name, lib_args, lib_want = "banded_interp", (stacked, pos), planar
+            bound_ms, bound_by, nbytes, nops = bound(name, args)
+            sets = itertools.cycle(cold_sets(args, nbytes))
+            ms = cuda_ms(lambda: kern(*next(sets)), reps=20, warm=2)
             plain_reps = 2 if name in ("band_chain", "comp_cumsum") else 10
             plain_ms = cuda_ms(lambda: ref(*args), reps=plain_reps, warm=1)
-            bound_ms, bound_by, nbytes, nops = bound(name, args)
             if name in CHAIN_DEPTH:
                 # a chain's operations wait on each other: its operations
                 # bound is the dependent chain's latency where that is longer
@@ -423,21 +486,27 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                     f"{chain_ms:.4f} ms")
                 if chain_ms > bound_ms:
                     bound_ms, bound_by = chain_ms, "operations"
-            lib = library_call(name, args)
+            lib = library_call(lib_name, lib_args)
             lib_ms, lib_note = None, ""
             if lib is not None:
                 call, layout = lib
-                lib_err = float((layout(call()) - got[0]).abs().max() / got[0].abs().max())
-                lib_ms = cuda_ms(call, reps=10, warm=1)
+                lib_err = float((layout(call()) - lib_want).abs().max() / lib_want.abs().max())
+                lib_calls = itertools.cycle(
+                    [call] + [library_call(lib_name, a)[0]
+                              for a in cold_sets(lib_args, nbytes)[1:]])
+                lib_ms = cuda_ms(lambda: next(lib_calls)(), reps=10, warm=1)
                 what = "two grid_sample calls" if name == "chainfetch" else "grid_sample"
                 lib_note = f", {what} {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
             shapes = " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
             log(f"[kernel] {tag} {name}#{j} {shapes}: max_abs_err={err!r} "
                 f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_note}; bound {bound_ms:.4f} ms "
                 f"by {bound_by} ({nbytes / 1e6:.1f} MB, {nops / 1e6:.1f} Mop; "
-                f"{bound_ms / ms:.1%} of it reached)")
+                f"{bound_ms / ms:.1%} of it reached){copy_note}")
             if not finite or err > TOLERANCE:
                 raise AssertionError(f"{name} ({tag}) disagrees with its plain version: {err}")
+            # the result line reports kernel 5 at the main path's call: the
+            # complex spectra through the interleaved entry point
+            name = "banded_interp" if name == "banded_interp_complex" else name
             if tag == KERNELS[name][2] and j == 0:
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
@@ -793,6 +862,17 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile] {kind} top: {us / steps / 1e3:.3f} ms/step "
             f"({us / steps / 1e3 / busy:.1%}) {name[:90]}")
+    # the PyTorch ops called directly inside the gather stage, by device time
+    stage = GATHER_STAGE[pool.engine]
+    inside: dict = {}
+    for e in events:
+        if e.name == stage and e.device_type == torch.autograd.DeviceType.CPU:
+            for child in e.cpu_children:
+                us, calls = inside.get(child.name, (0.0, 0))
+                inside[child.name] = (us + child.device_time_total, calls + 1)
+    log(f"[profile] {kind} {stage} ops: " + "; ".join(
+        f"{name} {us / steps / 1e3:.3f} ms/step ({calls // steps} calls)"
+        for name, (us, calls) in sorted(inside.items(), key=lambda kv: -kv[1][0])[:10]))
 
 
 def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
@@ -875,6 +955,17 @@ def main() -> int:
             if set(ops) != {"frames_windowed", "comp_cumsum", "chainfetch", "band_chain"}:
                 raise AssertionError(f"the fused step called {sorted(ops)}")
             compare_kernels({"chainfetch": ops["chainfetch"]}, "preset-fused", results, mhz)
+            # the formant chain's envelope lookup, a third, one-plane gather:
+            # a step with one formant voice
+            ops = {}
+            if not pool.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
+                raise RuntimeError("formant control refused")
+            with capture_operands(ops, "fidelity"):
+                pool.step(fetch=True)
+            lookup = [a for a in ops["frac_gather"] if a[0].shape[2] == 1]
+            if len(ops["frac_gather"]) != 3 or len(lookup) != 1:
+                raise AssertionError("the formant step made no one-plane gather")
+            compare_kernels({"frac_gather": lookup}, "preset-formant", results, mhz)
         if kind == "fast":
             # the envelope gathers: a step with one formant voice
             ops = {}
@@ -882,9 +973,10 @@ def main() -> int:
                 raise RuntimeError("formant control refused")
             with capture_operands(ops, "fast"):
                 pool.step(fetch=True)
-            if len(ops["banded_interp"]) != 3:
-                raise AssertionError(f"formant step gathered {len(ops['banded_interp'])} times")
-            compare_kernels({"banded_interp": ops["banded_interp"][1:]}, "fast-formant",
+            if len(ops["banded_interp"]) != 2 or len(ops["banded_interp_complex"]) != 1:
+                raise AssertionError(f"formant step gathered {len(ops['banded_interp'])} "
+                                     "envelopes")
+            compare_kernels({"banded_interp": ops["banded_interp"]}, "fast-formant",
                             results, mhz)
         del pool, ops
         torch.cuda.empty_cache()

@@ -28,7 +28,8 @@ from bauklank_tpu.ops import pitchmap as jpm
 from bauklank_tpu.ops import windows as jwin
 from bauklank_tpu.ops.pallas.interp import banded_interp as j_banded_interp
 from bauklank_tpu_torch.engine.params import StretchParams, semitones_to_factor
-from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
+from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
+                                               banded_interp_ref)
 from bauklank_tpu_torch.ops import formant, pitchmap, windows
 
 torch.set_num_threads(1)
@@ -105,6 +106,55 @@ def test_gathers_match_jax():
     want = jpm.gather_fractional_real(jnp.asarray(env), jnp.asarray(pos_r), oob="clamp")
     got = pitchmap.gather_fractional_real(_t(env)[None], _t(pos_r)[None], oob="clamp")[0]
     _interp_close(got, want, env)
+
+
+@pytest.mark.parametrize("window", [768, 96])
+@pytest.mark.parametrize("semitones", [12.0, 0.0, -12.0, -36.0])
+def test_banded_interp_complex_equals_planar_on_stacked_rows(semitones, window):
+    """The plain version on interleaved complex rows against itself on the
+    stacked real and imaginary rows, bit for bit: at the preset's
+    2688 bands, the serving window (which drops taps only at -36 st) and
+    a narrow one (which drops them from -12 st down at the least)."""
+    rng = np.random.default_rng(int(semitones) + window)
+    spec = (rng.standard_normal((2, 3, 2688)) + 1j * rng.standard_normal((2, 3, 2688))
+            ).astype(np.complex64)
+    pos = _t(np.stack([_pitch_positions(semitones, 5376),
+                       _pitch_positions(semitones - 0.37, 5376)]))
+    x = torch.view_as_real(_t(spec))                                    # [S, P, bins, 2]
+    got = banded_interp_ref(x, pos, window)
+    assert got.shape == (2, 3, 2688, 2)
+    stacked = torch.cat([_t(spec.real), _t(spec.imag)], dim=1)          # [S, 2P, bins]
+    want = banded_interp_ref(stacked, pos, window)
+    assert torch.equal(got[..., 0], want[:, :3]) and torch.equal(got[..., 1], want[:, 3:])
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(banded_interp_complex(x, pos, window), got)
+    # the serving window covers every tap down to about -31 st; the narrow
+    # one cannot hold a tile that spans 256 bands
+    dropped = not torch.equal(want, banded_interp_ref(stacked, pos, 1 << 20))
+    if window == 768:
+        assert dropped == (semitones == -36.0)
+    elif semitones <= -12.0:
+        assert dropped
+
+
+@pytest.mark.parametrize("bins_out", [512, 300])
+def test_gather_fractional_equals_its_planar_form(bins_out):
+    """gather_fractional through the interleaved entry point against the
+    form it had before (stacked real and imaginary parts through the planar
+    gather, joined by torch.complex), bit for bit, on and off the 128 grid."""
+    rng = np.random.default_rng(bins_out)
+    spec = _t((rng.standard_normal((2, 3, 2, 512)) + 1j * rng.standard_normal((2, 3, 2, 512))
+               ).astype(np.complex64))
+    pos = _t(np.sort(rng.uniform(-3, 515, (2, bins_out))).astype(np.float32))
+    got = pitchmap.gather_fractional(spec, pos)
+    parts = torch.stack([spec.real, spec.imag], dim=1)
+    out = pitchmap.gather_fractional_real(parts, pos, "zero")
+    want = torch.complex(out[:, 0], out[:, 1])
+    assert got.shape == want.shape == (2, 3, 2, bins_out) and got.dtype == torch.complex64
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(want))
+    # a conjugated or strided view of the spectra is served too
+    assert torch.equal(pitchmap.gather_fractional(torch.conj(spec).transpose(1, 2), pos),
+                       torch.conj(want).transpose(1, 2))
 
 
 def test_pitch_map_matches_jax():

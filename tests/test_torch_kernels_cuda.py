@@ -17,7 +17,8 @@ from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
 from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
 from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
-from bauklank_tpu_torch.kernels.interp import banded_interp, banded_interp_ref
+from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
+                                               banded_interp_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,14 +63,55 @@ def test_comp_cumsum(dev):
     assert torch.equal(hi, rhi) and torch.equal(lo, rlo)
 
 
-def test_frac_gather(dev):
-    rng = np.random.default_rng(2)
-    planes = _t(rng.standard_normal((5, 192, 6)).astype(np.float32), dev)
-    pos = rng.uniform(-3, 195, (5, 500)).astype(np.float32)
-    pos[:, :6] = [-0.5, -1.0, 191.0, 191.5, 192.0, 7.0]
-    pos = _t(pos, dev)
+def _gather_operands(rng, n, b, p, k, dev):
+    """Random planes over 24 decades and positions that leave [0, B) on
+    both sides, with the edge cases up front."""
+    planes = (rng.standard_normal((n, b, p)) * 10.0 ** rng.uniform(-12, 12, (n, b, p))
+              ).astype(np.float32)
+    pos = rng.uniform(-3, b + 3, (n, k)).astype(np.float32)
+    pos[:, :6] = [-0.5, -1.0, b - 1.0, b - 0.5, float(b), 7.0]
+    pos[:, -2:] = [-2.5, b + 1.5]
+    return _t(planes, dev), _t(pos, dev)
+
+
+@pytest.mark.parametrize("k", [500, 777, 2501], ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 6], ids=lambda p: f"p{p}")
+def test_frac_gather(dev, p, k):
+    """Every plane count known at compile time (1, 2, 3, 4, 6) and the
+    scalar form (5); K a multiple of 4 (at P = 1: four bands a thread),
+    odd, and past two tiles with a ragged end (not a multiple of the
+    positions a thread takes); rows 192 bands long, so that a row of n
+    starts off the 16-byte grid where P * K allows."""
+    planes, pos = _gather_operands(np.random.default_rng(100 * p + k), 5, 192, p, k, dev)
     got = _launched("frac_gather", lambda: frac_gather(planes, pos))
     assert torch.equal(got, frac_gather_ref(planes, pos))
+    again = _launched("pallas_gather", lambda: pallas_gather(planes, pos))
+    assert torch.equal(again, got)
+
+
+def test_frac_gather_past_2_31_elements(dev):
+    """N * K * P = 2.2e9 output elements: served by 64-bit offsets, not
+    refused.  Held against the plain version a few rows at a time (whole,
+    its temporaries would not fit), the last rows included."""
+    n, b, p, k = 520, 64, 4, 1 << 20
+    rng = np.random.default_rng(31)
+    planes = _t(rng.standard_normal((n, b, p)).astype(np.float32), dev)
+    pos = torch.empty((n, k), dtype=torch.float32, device=dev).uniform_(
+        -2.0, b + 2.0, generator=torch.Generator(dev).manual_seed(31))
+    assert n * k * p > 2 ** 31
+    got = _launched("frac_gather", lambda: frac_gather(planes, pos))
+    for lo in (0, 255, 511, 512):
+        rows = slice(lo, min(lo + 8, n))
+        assert torch.equal(got[rows], frac_gather_ref(planes[rows], pos[rows])), lo
+
+
+def test_frac_gather_refuses_unaligned_operands(dev):
+    z = lambda *shape: torch.zeros(*shape, device=dev)
+    for gather in (frac_gather, pallas_gather):
+        with pytest.raises(ValueError, match="aligned"):
+            gather(z(2 * 8 * 4 + 1)[1:].view(2, 8, 4), z(2, 8))
+        with pytest.raises(ValueError, match="aligned"):
+            gather(z(2, 8, 4), z(17)[1:].view(2, 8))
 
 
 def test_pallas_gather(dev):
@@ -131,17 +173,46 @@ def test_band_chain(dev, long_step):
     assert torch.equal(got, band_chain_ref(lead_t, chan_t, long_step))
 
 
+def _interp_positions(rng, bins, bins_out):
+    """Monotone positions running out of range at both ends; row 2 a steep
+    stretch whose last tile spans ~700 bands, row 3 the slope of -36
+    semitones (a tile spans 1024 bands): both drop taps."""
+    pos = np.sort(rng.uniform(-4, bins + 4, (4, bins_out)), axis=1)
+    pos[2] = -2.0 + (bins + 8.0) * np.linspace(0.0, 1.0, bins_out) ** 3
+    pos[3] = 8.0 * np.arange(bins_out) + 3.5
+    return pos.astype(np.float32)
+
+
 @pytest.mark.parametrize("window", [256, 768])
 def test_banded_interp(dev, window):
-    """Monotone positions running out of range at both ends, plus a steep
-    stretch whose tiles span more than the window (dropped taps)."""
+    """37 rows (no multiple of the rows a block takes, nor of the four it
+    loads at a time), 1024 bands and, at window 768, 640 bands
+    (bins < window + 128: the window is the whole row)."""
     rng = np.random.default_rng(window)
-    x = _t(rng.standard_normal((3, 8, 1024)).astype(np.float32), dev)
-    pos = np.sort(rng.uniform(-4, 1028, (3, 512)), axis=1)
-    pos[2] = -2.0 + 1032.0 * np.linspace(0.0, 1.0, 512) ** 3   # last tile spans ~700 bands
-    pos = _t(pos.astype(np.float32), dev)
+    bins = 1024 if window == 256 else 640
+    x = _t(rng.standard_normal((4, 37, bins)).astype(np.float32), dev)
+    pos = _t(_interp_positions(rng, bins, 512), dev)
     got = _launched("banded_interp", lambda: banded_interp(x, pos, window))
     assert torch.equal(got, banded_interp_ref(x, pos, window))
+
+
+@pytest.mark.parametrize("window", [256, 768])
+def test_banded_interp_complex(dev, window):
+    """The interleaved entry point: equal to its plain version and to the
+    planar kernel on the stacked real and imaginary rows, bit for bit; it
+    counts under banded_interp."""
+    rng = np.random.default_rng(window + 1)
+    bins = 1024 if window == 256 else 640
+    x = _t(rng.standard_normal((4, 19, bins, 2)).astype(np.float32), dev)
+    pos = _t(_interp_positions(rng, bins, 512), dev)
+    got = _launched("banded_interp", lambda: banded_interp_complex(x, pos, window))
+    assert torch.equal(got, banded_interp_ref(x, pos, window))
+    planar = banded_interp(torch.cat([x[..., 0], x[..., 1]], dim=1).contiguous(), pos, window)
+    assert torch.equal(got[..., 0], planar[:, :19]) and torch.equal(got[..., 1], planar[:, 19:])
+    with pytest.raises(ValueError, match="aligned"):
+        banded_interp_complex(
+            torch.zeros(2 * 3 * 256 * 2 + 1, device=dev)[1:].view(2, 3, 256, 2),
+            pos[:2, :128].contiguous())
 
 
 def test_wrappers_refuse_mixed_devices(dev):

@@ -62,17 +62,28 @@ def test_kernel_sources_and_flags():
         assert "Design:" in head, p.name
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert set(build.SIGNATURES) == {f"bk_{k}" for k in kernels.LAUNCHES}
+    # one C function per kernel, and the interleaved-complex entry point of
+    # kernel 5, which counts under banded_interp
+    assert set(build.SIGNATURES) == ({f"bk_{k}" for k in kernels.LAUNCHES}
+                                     | {"bk_banded_interp_c"})
     assert set(kernels.LAUNCHES) == {
         "frames_windowed", "comp_cumsum", "frac_gather", "band_chain", "banded_interp",
         "pallas_gather", "chainfetch"}
     # one device function serves kernels 3 and 6; the fused fetch shares its taps
     gather = (PKG / "csrc" / "frac_gather.cu").read_text()
     assert "bk_frac_gather" in gather and "bk_pallas_gather" in gather
-    assert gather.count("__global__") == 1
+    # P known at compile time, P = 1 four bands a thread, and the scalar form
+    assert gather.count("__global__") == 3 and "template <int P" in gather
     assert "bauklank_tpu/ops/pallas/selection.py" in gather[:2000]
     for name in ("frac_gather.cu", "chainfetch.cu"):
-        assert '#include "frac_tap.cuh"' in (PKG / "csrc" / name).read_text()
+        text = (PKG / "csrc" / name).read_text()
+        assert '#include "frac_tap.cuh"' in text
+        # the row movers live in the shared header only
+        assert "bk::load_row<" in text or "bk::mix_row<" in text
+        assert "void load_row(" not in text and "void store_row(" not in text
+    interp = (PKG / "csrc" / "interp.cu").read_text()
+    assert "bk_banded_interp(" in interp and "bk_banded_interp_c(" in interp
+    assert interp.count("__global__") == 1
     # a shared header is part of the library's hash: editing it rebuilds
     assert PKG / "csrc" / "frac_tap.cuh" in build._headers()
 
