@@ -15,7 +15,8 @@ import torch
 from bauklank_tpu_torch.kernels import LAUNCHES, on_cuda, require, stream_of
 from bauklank_tpu_torch.kernels.build import check, library
 
-__all__ = ["band_chain", "band_chain_ref", "EPS", "MAX_LONG_STEP", "MAX_CHANNELS"]
+__all__ = ["band_chain", "band_chain_ref", "root_ratio_mismatches", "band_step_cycles", "EPS",
+           "MAX_LONG_STEP", "MAX_CHANNELS"]
 
 EPS = 1e-15          # engine.spectral.EPS
 MAX_LONG_STEP = 16   # the kernel's ring bound (csrc/bandchain.cu)
@@ -88,6 +89,9 @@ def band_chain(lead: torch.Tensor, chan: torch.Tensor, long_step: int) -> torch.
         return band_chain_ref(lead, chan, long_step)
     require(lead.is_contiguous() and chan.is_contiguous(), name,
             "operands must be contiguous")
+    # the operand planes are staged in 16-byte copies (where S is a multiple of 4)
+    require(lead.data_ptr() % 16 == 0 and chan.data_ptr() % 16 == 0, name,
+            "operands must be 16-byte aligned")
     _, b_n, s_n = lead.shape
     c_n = chan.shape[0]
     out = torch.empty((c_n, 2, b_n, s_n), dtype=torch.float32, device=lead.device)
@@ -97,3 +101,31 @@ def band_chain(lead: torch.Tensor, chan: torch.Tensor, long_step: int) -> torch.
     check(err, name)
     LAUNCHES[name] += 1
     return out
+
+
+def root_ratio_mismatches(samples: int, seed: int = 0) -> int:
+    """On the card: among about ``samples`` random operand pairs of its
+    range, how many the kernel's branch-free ``sqrt(a / b)`` rounds
+    otherwise than ``__fsqrt_rn(__fdiv_rn(a, b))`` (csrc/bandchain.cu).
+    The kernel's bit-equality rests on this being 0."""
+    per_thread = 1024
+    blocks = max(1, samples // (256 * per_thread))
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = library().bk_root_ratio_check(seed, blocks, per_thread, bad.data_ptr(), stream_of(bad))
+    check(err, "root_ratio_check")
+    return int(bad.item())
+
+
+def band_step_cycles() -> dict:
+    """On the card: the cycles one warp alone takes for a dependent float
+    add and for one band's step from registers (two channels with and
+    without the long step, one channel): the least the kernel's loop could
+    take a band (csrc/bandchain.cu)."""
+    out = torch.zeros(8, dtype=torch.float32, device="cuda")
+    for _ in range(2):    # the second pass finds its instructions cached
+        check(library().bk_band_step_cycles(out.data_ptr(), stream_of(out)), "band_step_cycles")
+    c = out.tolist()
+    if c[5] != 1.0:
+        raise RuntimeError("band_step_cycles: the timed steps left the shortcuts' range")
+    return {"fadd_dependent": c[0], "step_2ch": c[2], "step_2ch_long_step_1": c[3],
+            "step_1ch": c[4]}

@@ -45,6 +45,8 @@ SIGNATURES = {
     "bk_band_chain": (_P, _P, _P, _I, _I, _I, _I, _P),
     "bk_banded_interp": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bk_banded_interp_c": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bk_root_ratio_check": (_P, _I, _I, _P, _P),
+    "bk_band_step_cycles": (_P, _P),
 }
 
 _lock = threading.Lock()

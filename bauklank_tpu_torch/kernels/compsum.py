@@ -42,6 +42,8 @@ def comp_cumsum(x: torch.Tensor):
     if not on_cuda(name, x):
         return comp_cumsum_ref(x)
     require(x.is_contiguous(), name, "x must be contiguous")
+    # x is staged in 16-byte copies (where N is a multiple of 4)
+    require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
     k_n, b_n, n_n = x.shape
     hi = torch.empty_like(x)
     lo = torch.empty_like(x)

@@ -20,7 +20,12 @@ Phases (any failure raises and exits non-zero without the result line):
    ``pallas_gather``, which no step calls, on the fidelity pools'
    five-family operands; the interleaved-complex entry point of
    ``banded_interp`` also against the planar one on the stacked copy of its
-   rows (bit-equal), which is what ``grid_sample`` is timed on;
+   rows (bit-equal), which is what ``grid_sample`` is timed on; the two
+   sequential kernels (``band_chain``, ``comp_cumsum``) also timed with
+   their operands left in the L2, the band chain's branch-free
+   ``sqrt(a / b)`` held to the library's rounding on 2^30 random pairs, and
+   the cycles one band's step takes from registers (what its loop could
+   reach at best);
 4. each stage of both engines' steps on the card against the same stage
    on the host CPU, fed the same inputs (the CPU path is the one the
    tests hold against the JAX package): the MDFT within a relative bound,
@@ -136,7 +141,13 @@ OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
                   "chainfetch": 3}
 # the dependent float32 operations one step of a chain waits on (one
 # band of the band chain, one TwoSum of the compensated sum), each at
-# least the 4-cycle latency of a float32 add or multiply
+# least the 4-cycle latency of a float32 add or multiply.  The band
+# chain's 19 counts its divide and its square root as one operation each
+# and only the leader's pair; the card runs each as a reciprocal (or
+# reciprocal root) of 17-19 cycles and 3-5 dependent multiply-adds, twice
+# a band (leader, then follower), so a band's step read from registers
+# takes 232 cycles, not 76 (PERF.md section 6).  The bound is left as it
+# was: it is a floor, and the rows keep one yardstick.
 CHAIN_DEPTH = {"band_chain": 19, "comp_cumsum": 7}
 DEP_CYCLES = 4
 
@@ -476,7 +487,12 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
             ms = cuda_ms(lambda: kern(*next(sets)), reps=20, warm=2)
             plain_reps = 2 if name in ("band_chain", "comp_cumsum") else 10
             plain_ms = cuda_ms(lambda: ref(*args), reps=plain_reps, warm=1)
+            warm_note = ""
             if name in CHAIN_DEPTH:
+                # with its operands left in the L2: a chain that waits on its
+                # own loads reads faster there
+                warm_ms = cuda_ms(lambda: kern(*args), reps=20, warm=2)
+                warm_note = f" (operands left in the L2: {warm_ms:.4f} ms)"
                 # a chain's operations wait on each other: its operations
                 # bound is the dependent chain's latency where that is longer
                 steps = args[0].shape[1]
@@ -499,7 +515,8 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 lib_note = f", {what} {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
             shapes = " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
             log(f"[kernel] {tag} {name}#{j} {shapes}: max_abs_err={err!r} "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_note}; bound {bound_ms:.4f} ms "
+                f"kernel {ms:.4f} ms{warm_note}, plain {plain_ms:.4f} ms{lib_note}; "
+                f"bound {bound_ms:.4f} ms "
                 f"by {bound_by} ({nbytes / 1e6:.1f} MB, {nops / 1e6:.1f} Mop; "
                 f"{bound_ms / ms:.1%} of it reached){copy_note}")
             if not finite or err > TOLERANCE:
@@ -934,6 +951,22 @@ def main() -> int:
             log(f"[ptxas] {line.strip()}")
 
     # 3. kernels against their plain versions, on main-path operands
+    from bauklank_tpu_torch.kernels.bandchain import band_step_cycles, root_ratio_mismatches
+
+    cyc = band_step_cycles()
+    log(f"[bound] one warp alone, cycles: a dependent float add {cyc['fadd_dependent']:.2f}; "
+        f"band_chain's step from registers "
+        f"{cyc['step_2ch']:.1f} (2 channels), {cyc['step_2ch_long_step_1']:.1f} (2 channels, "
+        f"long_step 1), {cyc['step_1ch']:.1f} (1 channel), against the bound's "
+        f"{CHAIN_DEPTH['band_chain'] * DEP_CYCLES}: at {mhz:.0f} MHz "
+        f"{3072 * cyc['step_2ch'] / (mhz * 1e3):.4f} ms for 3072 bands, "
+        f"{5120 * cyc['step_2ch_long_step_1'] / (mhz * 1e3):.4f} ms for 5120 at long_step 1 "
+        f"| {card}")
+    wrong = root_ratio_mismatches(1 << 30)
+    log(f"[kernel] band_chain's branch-free sqrt(a / b) against __fsqrt_rn(__fdiv_rn()) on 2^30 "
+        f"random pairs of its range: {wrong} differ")
+    if wrong:
+        raise AssertionError(f"root_ratio_fast rounds otherwise on {wrong} pairs")
     results: dict = {}
     gather_args = None
     for kind in ("preset", "kiosk", "fast"):

@@ -12,7 +12,8 @@ import torch
 
 from bauklank_tpu_torch import kernels
 from bauklank_tpu_torch.kernels import build
-from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
+from bauklank_tpu_torch.kernels.bandchain import (band_chain, band_chain_ref,
+                                                  band_step_cycles, root_ratio_mismatches)
 from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
 from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_ref
@@ -56,11 +57,57 @@ def test_frames_windowed(dev):
     assert torch.equal(got, frames_windowed_ref(audio, starts, win))
 
 
+def _same_bits(a, b):
+    """Equal bit for bit (so -0 is not +0), NaNs compared by position."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
 def test_comp_cumsum(dev):
     x = _t(np.random.default_rng(1).standard_normal((3, 700, 300)).astype(np.float32), dev)
     hi, lo = _launched("comp_cumsum", lambda: comp_cumsum(x))
     rhi, rlo = comp_cumsum_ref(x)
     assert torch.equal(hi, rhi) and torch.equal(lo, rlo)
+
+
+@pytest.mark.parametrize("n_n", [1, 31, 33, 36, 128], ids=lambda n: f"n{n}")
+@pytest.mark.parametrize("b_n", [1, 63, 64, 65, 199], ids=lambda b: f"b{b}")
+def test_comp_cumsum_edges(dev, b_n, n_n):
+    """Row counts under, over and at a warp's 32, with N a multiple of 4
+    (16-byte copies, a partly filled last block at 36) and not (copied
+    float by float); B one under, at and one over a stage's 64 bands and a
+    ragged multiple; values over 40 binades with an exact-zero gap, and an
+    infinity, a NaN and a negative zero planted in rows of their own."""
+    rng = np.random.default_rng(1000 * b_n + n_n)
+    x = (rng.standard_normal((3, b_n, n_n))
+         * np.exp2(rng.integers(-20, 20, (3, b_n, n_n)))).astype(np.float32)
+    x[1, b_n // 3: b_n // 2] = 0.0
+    x[2, b_n // 2, 0] = np.inf
+    x[0, b_n // 4, n_n // 2] = np.nan
+    x[1, 0, n_n - 1] = -0.0
+    x = _t(x, dev)
+    hi, lo = _launched("comp_cumsum", lambda: comp_cumsum(x))
+    rhi, rlo = comp_cumsum_ref(x)
+    assert _same_bits(hi, rhi) and _same_bits(lo, rlo)
+
+
+def test_comp_cumsum_many_planes(dev):
+    """More leading planes than a grid's second axis could count."""
+    x = torch.randn((70000, 3, 4), device=dev)
+    hi, lo = _launched("comp_cumsum", lambda: comp_cumsum(x))
+    rhi, rlo = comp_cumsum_ref(x)
+    assert torch.equal(hi, rhi) and torch.equal(lo, rlo)
+
+
+def test_sequential_kernels_refuse_unaligned_operands(dev):
+    z = lambda *shape: torch.zeros(*shape, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        comp_cumsum(z(3 * 8 * 4 + 1)[1:].view(3, 8, 4))
+    with pytest.raises(ValueError, match="aligned"):
+        band_chain(z(9 * 8 * 4 + 1)[1:].view(9, 8, 4), z(2, 6, 8, 4), 1)
+    with pytest.raises(ValueError, match="aligned"):
+        band_chain(z(9, 8, 4), z(2 * 6 * 8 * 4 + 1)[1:].view(2, 6, 8, 4), 1)
 
 
 def _gather_operands(rng, n, b, p, k, dev):
@@ -158,6 +205,22 @@ def test_chainfetch(dev, b_n, long_step, c_n):
     assert torch.equal(comb, frac_gather(torch.cat([prev, energy], dim=2).contiguous(), ib))
 
 
+def _chain_operands(rng, c_n, b_n, s_n):
+    """Random chain operands with the leader channel switching at random
+    from band to band, the EPS fallback hit on the leader (band 2) and on
+    the followers (band 1), and a band whose pe is 0."""
+    lead = rng.standard_normal((9, b_n, s_n)).astype(np.float32)
+    lead[8] = np.abs(lead[8])
+    lead[:6, min(2, b_n - 1)] = 0.0                 # a vanishing phase sum -> pi
+    lead[8, b_n // 2] = 0.0                         # pe == 0
+    chan = rng.standard_normal((c_n, 6, b_n, s_n)).astype(np.float32)
+    mc = rng.integers(0, c_n, (b_n, s_n))
+    chan[:, 0] = mc[None] == np.arange(c_n)[:, None, None]
+    chan[:, 3] = np.abs(chan[:, 3])
+    chan[:, 1:3, min(1, b_n - 1)] = 0.0             # a vanishing lock -> pic
+    return lead, chan
+
+
 @pytest.mark.parametrize("long_step", [5, 1])
 def test_band_chain(dev, long_step):
     rng = np.random.default_rng(long_step)
@@ -171,6 +234,89 @@ def test_band_chain(dev, long_step):
     lead_t, chan_t = _t(lead, dev), _t(chan, dev)
     got = _launched("band_chain", lambda: band_chain(lead_t, chan_t, long_step))
     assert torch.equal(got, band_chain_ref(lead_t, chan_t, long_step))
+
+
+@pytest.mark.parametrize("s_n", [1, 31, 33, 36, 128], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("long_step", [1, 2, 5, 16], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("c_n", [1, 2, 3, 8], ids=lambda c: f"c{c}")
+def test_band_chain_edges(dev, c_n, long_step, s_n):
+    """Every channel form (1 and 2 known at compile time, 3 and 8 through
+    the wide form), long_step 1 (no ring) and ringed, stream counts under,
+    over and at a block's tile, with S a multiple of 4 (16-byte copies, a
+    partly filled last block at 36) and not (copied float by float); B
+    under long_step, one under, at and one over a stage's band tile (16
+    bands, 4 in the wide form) and ragged multiples of it."""
+    for b_n in (1, 3, 4, 5, 13, 15, 16, 17, 53):
+        rng = np.random.default_rng(((c_n * 17 + long_step) * 131 + s_n) * 59 + b_n)
+        lead, chan = (_t(a, dev) for a in _chain_operands(rng, c_n, b_n, s_n))
+        got = _launched("band_chain", lambda: band_chain(lead, chan, long_step))
+        assert _same_bits(got, band_chain_ref(lead, chan, long_step)), b_n
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_band_chain_root_ratio_rounds_as_the_library(dev, seed):
+    """The chain's branch-free sqrt(a / b) against __fsqrt_rn(__fdiv_rn())
+    on 2^32 random operand pairs of its range: not one differs."""
+    assert root_ratio_mismatches(1 << 32, seed) == 0
+
+
+def test_band_chain_step_cycles(dev):
+    """The step's cycle counts from registers: the timed steps stay inside
+    the shortcuts (else it raises), a step waits on more than one add, and
+    the second channel's follower costs cycles."""
+    cyc = band_step_cycles()
+    assert 1.0 < cyc["fadd_dependent"] < 16.0
+    assert cyc["step_2ch"] > cyc["step_1ch"] > 10 * cyc["fadd_dependent"]
+
+
+def test_band_chain_out_of_range_energies(dev):
+    """Energies outside the branch-free root's range (denormal, tiny, huge,
+    negative, -0) and phase sums that leave it: those bands run through
+    __fdiv_rn and __fsqrt_rn, equal bit for bit all the same."""
+    b_n, s_n = 40, 36
+    rng = np.random.default_rng(99)
+    lead, chan = _chain_operands(rng, 2, b_n, s_n)
+    scale = np.float32(2.0) ** rng.integers(-140, 120, (b_n, s_n)).astype(np.float32)
+    lead[8] *= scale
+    chan[:, 3] *= np.float32(2.0) ** rng.integers(-140, 120, (2, b_n, s_n)).astype(np.float32)
+    lead[4:8, :, ::3] *= np.float32(2.0 ** 30)      # |ph|^2 and |pi|^2 past 2^40
+    lead[4:8, :, 1::3] *= np.float32(2.0 ** -30)    # both under EPS
+    lead[8, 5, :] = -0.0
+    lead[8, b_n - 1, ::5] = -1.0                    # the root of a negative
+    lead_t, chan_t = _t(lead, dev), _t(chan, dev)
+    got = _launched("band_chain", lambda: band_chain(lead_t, chan_t, 5))
+    assert _same_bits(got, band_chain_ref(lead_t, chan_t, 5))
+
+
+@pytest.mark.parametrize("long_step", [1, 5], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("c_n", [1, 2, 3], ids=lambda c: f"c{c}")
+def test_band_chain_non_finite_operands(dev, c_n, long_step):
+    """An infinity, a NaN and a negative zero planted in lead and in chan
+    (the one-hot plane included), each in streams of its own: equal bit for
+    bit with NaNs compared by position, the streams they reach and the
+    untouched ones alike."""
+    b_n, s_n = 70, 40
+    rng = np.random.default_rng(7 * c_n + long_step)
+    lead, chan = _chain_operands(rng, c_n, b_n, s_n)
+    lead[4, 20, 1] = np.inf            # u.re
+    lead[0, 21, 2] = np.nan            # d1.re
+    lead[6, 2, 3] = -0.0               # pi.re, where the fallback takes it
+    lead[8, 30, 4] = np.inf            # pe
+    lead[8, 31, 5] = -1.0              # pe < 0: the square root of a negative
+    lead[4:6, 33, 6] = -0.0            # u = -0
+    chan[0, 1, 22, 7] = np.inf         # lock.re
+    chan[c_n - 1, 3, 23, 8] = np.nan   # pec
+    chan[0, 4, 1, 9] = -0.0            # pic.re, where the fallback takes it
+    chan[0, 0, 24, 10] = np.nan        # the one-hot plane
+    chan[c_n - 1, 0, 0, 11] = np.inf   # the one-hot plane at band 0, against the zero ring
+    chan[:, 0, 25, 12] = 0.0           # no leader at all
+    chan[:, 0, 26, 13] = 1.0           # every channel a leader
+    chan[0, 3, 27, 14] = 0.0           # pec == 0: an output of exact zeros
+    lead_t, chan_t = _t(lead, dev), _t(chan, dev)
+    got = _launched("band_chain", lambda: band_chain(lead_t, chan_t, long_step))
+    want = band_chain_ref(lead_t, chan_t, long_step)
+    assert _same_bits(got, want)
+    assert bool(torch.isnan(want).any()) and bool(torch.isfinite(want[..., 20:]).all())
 
 
 def _interp_positions(rng, bins, bins_out):

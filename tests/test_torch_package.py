@@ -62,13 +62,22 @@ def test_kernel_sources_and_flags():
         assert "Design:" in head, p.name
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    # one C function per kernel, and the interleaved-complex entry point of
-    # kernel 5, which counts under banded_interp
+    # one C function per kernel, the interleaved-complex entry point of
+    # kernel 5, which counts under banded_interp, and the band chain's two
+    # card-side checks (its branch-free root against the library's rounding,
+    # its step's cycle count), which launch no kernel of any path
     assert set(build.SIGNATURES) == ({f"bk_{k}" for k in kernels.LAUNCHES}
-                                     | {"bk_banded_interp_c"})
+                                     | {"bk_banded_interp_c", "bk_root_ratio_check",
+                                        "bk_band_step_cycles"})
     assert set(kernels.LAUNCHES) == {
         "frames_windowed", "comp_cumsum", "frac_gather", "band_chain", "banded_interp",
         "pallas_gather", "chainfetch"}
+    # the two sequential kernels stage their operands through one header, and
+    # neither divides by a run-time value on its walk
+    for name in ("bandchain.cu", "compsum.cu"):
+        text = (PKG / "csrc" / name).read_text()
+        assert '#include "band_stage.cuh"' in text and "bk::stage_rows<" in text
+        assert "% long_step" not in text
     # one device function serves kernels 3 and 6; the fused fetch shares its taps
     gather = (PKG / "csrc" / "frac_gather.cu").read_text()
     assert "bk_frac_gather" in gather and "bk_pallas_gather" in gather

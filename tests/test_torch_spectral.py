@@ -27,9 +27,11 @@ import jax.numpy as jnp
 import torch
 
 from bauklank_tpu.engine import spectral as jspec
+from bauklank_tpu.ops.pallas.bandchain import band_chain as jax_band_chain
 from bauklank_tpu.ops.pallas.compsum import LANE, comp_cumsum_seq
 from bauklank_tpu_torch.engine import fidelity as tfid
 from bauklank_tpu_torch.engine import spectral as tspec
+from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
 
 sys.path.insert(0, "tools")
@@ -123,6 +125,23 @@ def test_comp_cumsum_ref_matches_pallas(adversarial):
     np.testing.assert_array_equal(wlo.numpy(), lo.numpy())
 
 
+@pytest.mark.parametrize("b_n", [1, 65, 700])
+def test_comp_cumsum_ref_matches_pallas_ragged(b_n):
+    """Bit-equal to the Pallas fold at a row count that is no multiple of
+    32 (37 rows a channel; the Pallas kernel wants its 128 lanes, so its
+    input is padded with rows of zeros) and at B one band, one over a
+    64-band stage and a ragged multiple of it."""
+    rng = np.random.default_rng(b_n)
+    x = (rng.standard_normal((3, b_n, 37))
+         * np.exp2(rng.integers(-30, 30, (3, b_n, 37)))).astype(np.float32)
+    x[1, b_n // 3: b_n // 2] = 0.0
+    x[2] = rng.integers(0, 2, (b_n, 37)).astype(np.float32)
+    jhi, jlo = comp_cumsum_seq(jnp.asarray(np.pad(x, ((0, 0), (0, 0), (0, LANE - 37)))), True)
+    hi, lo = comp_cumsum(_t(x))                  # CPU tensor: the plain version
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi)[..., :37])
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo)[..., :37])
+
+
 def test_comp_cumsum_invariants(adversarial):
     hi, lo = (v.numpy() for v in comp_cumsum_ref(_t(adversarial)))
     # folding exact zeros returns the bitwise-identical pair
@@ -210,3 +229,57 @@ def test_band_chain_vs_pallas_and_scan(block, interval):
     assert _rel(got, kern) < 1e-5
     assert _rel(got, scan) < 1e-5
     assert np.isfinite(got).all()
+
+
+def _edge_chain_operands(rng, c_n, b_n, s_n):
+    """Kernel-layout operands (lead [9, B, S], chan [C, 6, B, S]) with the
+    leader channel switching at every band, the EPS fallback hit on the
+    leader (a vanishing phase sum) and on the followers (a vanishing lock),
+    and a band whose pe is 0.  |u| in [3, 5] and |d1|, |d2| in [0.2, 0.6]
+    with |out| <= 2: the phase sum never nearly cancels, so a one-ulp
+    difference is not amplified from band to band."""
+    def polar(lo, hi):
+        z = rng.uniform(lo, hi, (b_n, s_n)) * np.exp(2j * np.pi * rng.uniform(0, 1, (b_n, s_n)))
+        return z.real, z.imag
+
+    lead = rng.standard_normal((9, b_n, s_n)).astype(np.float32)
+    lead[0], lead[1] = polar(0.2, 0.6)
+    lead[2], lead[3] = polar(0.2, 0.6)
+    lead[4], lead[5] = polar(3.0, 5.0)
+    lead[8] = rng.uniform(0.1, 4.0, (b_n, s_n)).astype(np.float32)
+    chan = rng.standard_normal((c_n, 6, b_n, s_n)).astype(np.float32)
+    mc = (np.arange(b_n)[:, None] + np.arange(s_n)[None, :]) % c_n
+    chan[:, 0] = mc[None] == np.arange(c_n)[:, None, None]
+    chan[:, 3] = rng.uniform(0.1, 4.0, (c_n, b_n, s_n)).astype(np.float32)
+    lead[:6, min(7, b_n - 1)] = 0.0           # d1 = d2 = u = 0: ph falls back to pi
+    chan[:, 1:3, min(11, b_n // 2)] = 0.0     # lock = 0: the followers fall back to pic
+    lead[8, (2 * b_n) // 3] = 0.0             # pe == 0: the leader's output is 0
+    return lead, chan
+
+
+@pytest.mark.parametrize("b_n", [1, 3, 300], ids=lambda v: f"b{v}")
+@pytest.mark.parametrize("s_n", [1, 33], ids=lambda v: f"s{v}")
+@pytest.mark.parametrize("long_step", [1, 2, 5, 16], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("c_n", [1, 2, 3], ids=lambda v: f"c{v}")
+def test_band_chain_ref_vs_pallas_edges(c_n, long_step, s_n, b_n):
+    """The plain version against the Pallas kernel in interpret mode (S
+    padded with zero streams to its 128 lanes, as engine.spectral pads it)
+    over the shapes the CUDA kernel's edges depend on: every channel form,
+    long_step 1 (no ring), 2, 5 and 16, one stream and 33, B of 1, under
+    long_step and 300.  Relative 1e-5: XLA contracts the interpreted
+    body's multiply-adds into FMAs."""
+    rng = np.random.default_rng(((c_n * 17 + long_step) * 37 + s_n) * 311 + b_n)
+    lead, chan = _edge_chain_operands(rng, c_n, b_n, s_n)
+    pad = (-s_n) % LANE
+    want = np.asarray(jax_band_chain(jnp.asarray(np.pad(lead, ((0, 0), (0, 0), (0, pad)))),
+                                     jnp.asarray(np.pad(chan, ((0, 0),) * 3 + ((0, pad),))),
+                                     long_step, True))[..., :s_n]
+    got = band_chain(_t(lead), _t(chan), long_step)     # CPU tensors: the plain version
+    assert torch.equal(got, band_chain_ref(_t(lead), _t(chan), long_step))
+    assert got.shape == (c_n, 2, b_n, s_n) and np.isfinite(got.numpy()).all()
+    assert _rel(got, want) < 1e-5
+    if b_n == 300:
+        # the edge cases were hit: an exact zero from pe == 0 on the leader
+        # channel of that band, and the leader really switches
+        zero_band = got.numpy()[:, :, (2 * b_n) // 3]
+        assert (np.abs(zero_band).min(axis=(0, 1)) == 0.0).all()
