@@ -1,22 +1,38 @@
 """bauklank_tpu_torch — the PyTorch + CUDA port of ``bauklank_tpu``.
 
 The package mirrors ``bauklank_tpu``'s layout (``engine/``, ``ops/``,
-``serve/``, ``schedule/``, ``utils/``) so each ported module sits at the
-same path as its JAX counterpart, which stays in the repository as the
-reference it is tested against.  Plain tensor code is PyTorch; the five
-kernels of the two engines are CUDA C++ for Hopper (``csrc/*.cu``), built
-at first use and bound with ``ctypes`` (``kernels/``).  A CPU tensor
-takes each kernel's plain PyTorch version.  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+``serve/``, ``node/``, ``schedule/``, ``utils/``) so each ported module
+sits at the same path as its JAX counterpart, which stays in the
+repository as the reference it is tested against.  Plain tensor code is
+PyTorch; the seven kernels (one for each ``pl.pallas_call`` of the JAX
+package) are CUDA C++ for Hopper (``csrc/*.cu``), built at first use and
+bound with ``ctypes`` (``kernels/``).  A CPU tensor takes each kernel's
+plain PyTorch version.  Entry points run on the card unless the caller
+passes ``device="cpu"``.  As in the JAX package, the pools and the node
+are imported from their subpackages.
 
-Ported so far: the fast engine (:func:`engine.core.process_chunk`,
-:func:`engine.batched.batched_process_chunk`,
-:func:`engine.offline.stretch_offline`), the fidelity serving step
-(:func:`engine.fidelity.batched_fidelity_chunk`), and the pool around
-both (:class:`serve.pool.StreamPool`, ``engine="fast"`` by default).
+Ported so far: both engines — the fast one
+(:func:`engine.core.process_chunk`, :func:`engine.batched.batched_process_chunk`,
+:func:`engine.offline.stretch_offline`, the live drive
+:func:`engine.live.process_live`) and the blob-exact one
+(:func:`engine.fidelity.batched_fidelity_chunk` with formants, the coupled
+:func:`engine.fidelity.batched_live_fidelity_chunk`, the one-stream
+:func:`engine.fidelity.fidelity_chunk`); the pools
+(:class:`serve.pool.StreamPool` with ``grow``, the pipelined fetch and
+``analyze``, :class:`serve.livepool.LivePool`,
+:class:`serve.unified.UnifiedPool`); the node
+(:class:`node.StretchNode`); checkpoints in the JAX package's format
+(:mod:`utils.checkpoint`); the monitoring ops (:mod:`ops.analyze`).
 """
 
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_cheaper, preset_default
+from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.utils.version import __version__
 
-__all__ = ["StretchConfig", "preset_default", "preset_cheaper", "__version__"]
+__all__ = [
+    "StretchConfig",
+    "StretchParams",
+    "preset_default",
+    "preset_cheaper",
+    "__version__",
+]

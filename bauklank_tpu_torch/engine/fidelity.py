@@ -45,6 +45,7 @@ from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.ops import framing, mdft
 from bauklank_tpu_torch.ops.mdft import unit_phase
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from bauklank_tpu_torch.utils.tree import tree_map
 
 __all__ = [
     "SpectralConfig",
@@ -54,6 +55,7 @@ __all__ = [
     "init_fidelity_state",
     "init_batched_fidelity_state",
     "batched_fidelity_chunk",
+    "fidelity_chunk",
     "live_fidelity_ring_len",
     "init_batched_live_fidelity_state",
     "batched_live_fidelity_chunk",
@@ -210,7 +212,12 @@ def _hop_loop(cfg: SpectralConfig, prev_out: torch.Tensor, xs: dict) -> torch.Te
     long_step = cfg.long_step
     outs = []
     for i in range(xs["tw"].shape[0]):
-        timepred = _div_real(prev_out * rot * xs["tw"][i], xs["den"][i])   # [S, C, B]
+        # mdft.cmul: the carried spectrum comes out of the band chain with
+        # the streams minor, and PyTorch's CPU complex product rounds a
+        # stride-1 stream axis by its length (scalar or vector loop), so the
+        # plain product would tie a voice's bits to the pool's width
+        rotated = mdft.cmul(mdft.cmul(prev_out, rot), xs["tw"][i])
+        timepred = _div_real(rotated, xs["den"][i])                         # [S, C, B]
         tp1 = torch.cat([timepred[..., 1:], torch.zeros_like(timepred[..., :1])], dim=-1)
         tpl = torch.cat([timepred[..., long_step:],
                          torch.zeros_like(timepred[..., :long_step])], dim=-1)
@@ -267,6 +274,26 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
 
     new_spec = SpectralState(*[freeze(a, b) for a, b in zip(new_spec, spec_states)])
     return (new_spec, freeze(new_tails, tails)), emit
+
+
+def fidelity_chunk(cfg: SpectralConfig, state, audio, frame_ends, time_factor, mult, limit,
+                   active, formant_factor=None, formant_compensation=None, formant_base=None,
+                   deterministic: bool | None = None):
+    """One stream's step: :func:`batched_fidelity_chunk` with a stream
+    axis added around its operands and stripped from its results.
+
+    state = (SpectralState, ola_tail [C, block + interval]) of one stream;
+    audio [C, T]; frame_ends [H]; the controls are scalars.  Returns
+    (state, emit [C, H * interval])."""
+    dev = audio.device
+    one = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(1)
+    formants = [None if x is None else one(x)
+                for x in (formant_factor, formant_compensation, formant_base)]
+    new, emit = batched_fidelity_chunk(
+        cfg, tree_map(lambda x: x[None], state), audio[None], frame_ends[None],
+        one(time_factor), one(mult), one(limit), one(active), *formants,
+        deterministic=deterministic)
+    return tree_map(lambda x: x[0], new), emit[0]
 
 
 def live_fidelity_ring_len(cfg: SpectralConfig, hops: int) -> int:

@@ -16,11 +16,10 @@ from bauklank_tpu_torch.kernels import LAUNCHES, on_cuda, require, stream_of
 from bauklank_tpu_torch.kernels.build import check, library
 
 __all__ = ["band_chain", "band_chain_ref", "root_ratio_mismatches", "band_step_cycles", "EPS",
-           "MAX_LONG_STEP", "MAX_CHANNELS"]
+           "MAX_CHANNELS"]
 
 EPS = 1e-15          # engine.spectral.EPS
-MAX_LONG_STEP = 16   # the kernel's ring bound (csrc/bandchain.cu)
-MAX_CHANNELS = 8
+MAX_CHANNELS = 8     # the card kernel's widest form (csrc/bandchain.cu)
 
 
 def band_chain_ref(lead: torch.Tensor, chan: torch.Tensor, long_step: int) -> torch.Tensor:
@@ -75,18 +74,19 @@ def band_chain_ref(lead: torch.Tensor, chan: torch.Tensor, long_step: int) -> to
 
 
 def band_chain(lead: torch.Tensor, chan: torch.Tensor, long_step: int) -> torch.Tensor:
+    """Any ``long_step`` >= 1 and any channel count, as the Pallas kernel;
+    the card kernel takes at most :data:`MAX_CHANNELS` channels."""
     name = "band_chain"
     require(lead.dim() == 3 and lead.shape[0] == 9, name, "expects lead [9, B, S]")
-    require(chan.dim() == 4 and chan.shape[1] == 6 and chan.shape[2:] == lead.shape[1:],
-            name, "expects chan [C, 6, B, S] matching lead")
+    require(chan.dim() == 4 and chan.shape[0] >= 1 and chan.shape[1] == 6
+            and chan.shape[2:] == lead.shape[1:], name, "expects chan [C, 6, B, S] matching lead")
     require(lead.dtype == torch.float32 and chan.dtype == torch.float32, name,
             "lead and chan must be float32")
-    require(1 <= long_step <= MAX_LONG_STEP, name,
-            f"long_step must lie in [1, {MAX_LONG_STEP}], got {long_step}")
-    require(1 <= chan.shape[0] <= MAX_CHANNELS, name,
-            f"channels must lie in [1, {MAX_CHANNELS}]")
+    require(long_step >= 1, name, f"long_step must be at least 1, got {long_step}")
     if not on_cuda(name, lead, chan):
         return band_chain_ref(lead, chan, long_step)
+    require(chan.shape[0] <= MAX_CHANNELS, name,
+            f"the card kernel takes at most {MAX_CHANNELS} channels, got {chan.shape[0]}")
     require(lead.is_contiguous() and chan.is_contiguous(), name,
             "operands must be contiguous")
     # the operand planes are staged in 16-byte copies (where S is a multiple of 4)

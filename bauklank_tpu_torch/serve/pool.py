@@ -13,10 +13,19 @@ over the step; clamps follow the reference (rate [1e-5, 2], semitones
 Per step the host builds one packed ``[S, H + 11]`` float32 array (frame
 ends, the seven StretchParams fields, gain and pan ramps) and copies it
 to the device once.
+
+``step(fetch="pipeline")`` overlaps the master's copy to the host with
+the next steps: each master is copied into one of ``pipeline_depth + 1``
+pinned host buffers with ``non_blocking=True`` and an event recorded
+behind the copy, and the step returns the master of ``pipeline_depth``
+steps ago once its event has completed.  The ring has one buffer more
+than the copies in flight, so no buffer is written while its copy is
+still being read.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any
@@ -37,9 +46,11 @@ from bauklank_tpu_torch.engine.fidelity import (
     init_batched_fidelity_state,
 )
 from bauklank_tpu_torch.engine.params import StretchParams
+from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from bauklank_tpu_torch.utils.metrics import StepTimer
+from bauklank_tpu_torch.utils.tree import tree_map
 
 __all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS"]
 
@@ -188,6 +199,12 @@ class StreamPool:
         self._audio_dev: torch.Tensor | None = None
         self.states = self._init_states(capacity)
         self.out_pos = 0  # output samples stepped so far
+        self._last_streams: torch.Tensor | None = None  # [S, C, n] of the last step
+        # masters in flight for step(fetch="pipeline"): (host tensor, event or None)
+        self.pipeline_depth = 2
+        self._fetch_q: collections.deque = collections.deque()
+        self._pinned: list[torch.Tensor] = []  # ring of pipeline_depth + 1 buffers
+        self._pinned_next = 0
         self.timer = StepTimer(sample_rate)
 
     # ------------------------------------------------------------- loading
@@ -217,12 +234,6 @@ class StreamPool:
             return init_batched_fidelity_state(self.scfg, n, self.device)
         return init_batched_state(self.config, n, self.device)
 
-    def _leaves(self, states) -> tuple:
-        if self.engine == "fidelity":
-            spec, tail = states
-            return (*spec, tail)
-        return tuple(states)
-
     def clear_voice(self, slot: str) -> None:
         """Fully reset one voice (engine state, audio, time map, mix) so its
         batch row can be reused."""
@@ -230,8 +241,39 @@ class StreamPool:
         self._audio_host[i] = 0.0
         self._audio_dev = None
         self.slots[i] = VoiceSlot(slot)
-        for leaf, fresh in zip(self._leaves(self.states), self._leaves(self._init_states(1))):
+
+        def reset(leaf, fresh):
             leaf[i] = fresh[0]
+
+        tree_map(reset, self.states, self._init_states(1))
+
+    def grow(self, new_capacity: int) -> None:
+        """Extend capacity in place (config-bucket growth in the unified
+        pool): every state leaf is concatenated with fresh rows along the
+        stream axis, so every existing voice keeps its state bit for bit;
+        fresh slots take the next free ``sNN`` names.  Masters in flight
+        are [2, n] and not touched; the last step's streams gain silent
+        rows, so ``analyze`` of a fresh slot reads silence."""
+        if new_capacity <= self.capacity:
+            return
+        pad = new_capacity - self.capacity
+        c, t = self._audio_host.shape[1:]
+        self._audio_host = np.concatenate([self._audio_host, np.zeros((pad, c, t), np.float32)])
+        self._audio_dev = None
+        taken = set(self._by_name)
+        k = self.capacity
+        while len(self.slots) < new_capacity:
+            name = f"s{k:02d}"
+            k += 1
+            if name not in taken:
+                self.slots.append(VoiceSlot(name))
+        self._by_name = {s.name: i for i, s in enumerate(self.slots)}
+        self.states = tree_map(lambda a, b: torch.cat([a, b]), self.states,
+                               self._init_states(pad))
+        if self._last_streams is not None:
+            last = self._last_streams
+            self._last_streams = torch.cat([last, last.new_zeros((pad,) + last.shape[1:])])
+        self.capacity = new_capacity
 
     def _device_audio(self) -> torch.Tensor:
         if self._audio_dev is None:
@@ -342,15 +384,15 @@ class StreamPool:
             s._prev_pan = s.pan
         return packed
 
-    def step(self, fetch: bool = False):
+    def step(self, fetch: bool | str = False):
         """Render the next chunk for every voice.
 
         Returns (master [2, n], streams [S, C, n]); n = hops_per_step *
         interval.  With ``fetch=True`` the master mix is copied to numpy,
-        which waits for the device work (honest latency accounting)."""
-        if fetch == "pipeline":
-            raise NotImplementedError(
-                'fetch="pipeline" is not ported yet (ROADMAP queue 1, pool slice)')
+        which waits for the device work (honest latency accounting).
+        ``fetch="pipeline"`` starts the master's copy to the host and
+        returns, as numpy, the master of ``pipeline_depth`` steps ago
+        (None while the pipeline fills); :meth:`drain` returns the rest."""
         self.timer.start()
         h = self.hops_per_step
         with record_function("pool.pack"):
@@ -375,10 +417,56 @@ class StreamPool:
                 cfg, self.states, self._device_audio(), dev_packed)
         self.out_pos += h * self._sizes[1]
         self._last_streams = streams
-        if fetch:
+        if fetch == "pipeline":
+            self._fetch_q.append(self._start_fetch(master))
+            master = (self._finish_fetch(*self._fetch_q.popleft())
+                      if len(self._fetch_q) > self.pipeline_depth else None)
+        elif fetch:
             master = master.cpu().numpy()
         self.timer.tick(self.capacity * h * self._sizes[1])
         return master, streams
+
+    def _start_fetch(self, master: torch.Tensor):
+        """Start the master's copy to the host: into the next pinned buffer
+        of the ring with an event behind it on the card, as it is on the
+        CPU."""
+        if master.device.type != "cuda":
+            return master, None
+        if not self._pinned or self._pinned[0].shape != master.shape:
+            self._pinned = [torch.empty(master.shape, dtype=master.dtype, pin_memory=True)
+                            for _ in range(self.pipeline_depth + 1)]
+            self._pinned_next = 0
+        buf = self._pinned[self._pinned_next]
+        self._pinned_next = (self._pinned_next + 1) % len(self._pinned)
+        buf.copy_(master, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return buf, event
+
+    @staticmethod
+    def _finish_fetch(buf: torch.Tensor, event) -> np.ndarray:
+        """Wait for one copy and take the master out of its buffer (the
+        buffer is written again pipeline_depth + 1 steps later)."""
+        if event is not None:
+            event.synchronize()
+        return buf.numpy().copy()
+
+    def drain(self) -> list[np.ndarray]:
+        """The masters still in the fetch pipeline, in dispatch order (call
+        after the last ``step(fetch="pipeline")`` so no audio is lost)."""
+        out = [self._finish_fetch(*f) for f in self._fetch_q]
+        self._fetch_q.clear()
+        return out
+
+    # ------------------------------------------------------------- analyze
+    def analyze(self, slot: str, n_buckets: int = 128) -> dict | None:
+        """Scope, spectrum and levels of a voice's last rendered chunk,
+        computed on the device from the retained streams; one copy to the
+        host per request."""
+        if slot not in self._by_name or self._last_streams is None:
+            return None
+        sig = self._last_streams[self._by_name[slot]]
+        return analyze_signal(slot, sig, self.sample_rate, n_buckets)
 
     def metrics(self) -> dict:
         """Rolling serving metrics: step p50/p99 latency + aggregate RTF."""

@@ -49,7 +49,20 @@ Phases (any failure raises and exits non-zero without the result line):
 7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
    pool, split by the step's stages (host and device time each), the
    PyTorch ops that take most device time inside the gather stage, and
-   the card's busy share.
+   the card's busy share;
+8. the serving front door, as ``serve/server.py`` builds it: a
+   ``UnifiedPool`` with pipelined fetch for each engine (fidelity: 64
+   preset and 64 kiosk file voices and 16 live ones; fast: 32, 32 and 8;
+   every bucket grown from 4 by doubling), 4 s of master in 30 ms quanta
+   with the quantum's host time and each bucket's launches, a twin with
+   blocking fetch whose master must be equal bit for bit, ``analyze`` of a
+   file and a live voice, and ``save_unified``/``load_unified`` resumed
+   bit for bit; a fidelity and a fast ``StretchNode`` at the kiosk
+   configure and a fidelity node at ``configure(block=2048, interval=64)``
+   (long_step 32); the band chain at long_step 32, 24 and 40 (the general
+   form) and the two sequential kernels at S = 4 and 8, each against its
+   plain version.  The launch counts are set to 0 before each pool or
+   node and read after it.
 
 It prints one JSON line of per-kernel results, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA; without a card
@@ -921,6 +934,275 @@ def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
     return dt * 1e3, master
 
 
+# 8. the serving front door: the pools and the node as the server builds them
+FRONT_PATH = {"fidelity": ("frames_windowed", "comp_cumsum", "frac_gather", "band_chain"),
+              "fast": ("frames_windowed", "banded_interp")}
+# (preset, kiosk, live) voices of each UnifiedPool; each bucket grows from 4
+FRONT_VOICES = {"fidelity": (64, 64, 16), "fast": (32, 32, 8)}
+FRONT_SECONDS = 4.0
+FRONT_WARM = 10     # quanta left out of the quantum-time percentiles
+RESUME_QUANTA = 10
+
+
+def _check_path(what: str, engine: str, counts: dict, on_card: bool) -> None:
+    """Every kernel of the engine's path launched in the run, no other."""
+    if not on_card:
+        return
+    path = FRONT_PATH[engine]
+    missing = [k for k in path if counts[k] == 0]
+    stray = {k: v for k, v in counts.items() if k not in path and v}
+    if missing or stray:
+        raise AssertionError(f"{what} launched {counts}: none of {missing}, stray {stray}")
+
+
+@contextlib.contextmanager
+def per_bucket_launches(store: dict):
+    """Count each unified bucket's steps and kernel launches (the bucket's
+    ``render_chunk`` is wrapped for the run)."""
+    from bauklank_tpu_torch import kernels
+    from bauklank_tpu_torch.serve import unified
+
+    orig = unified._Bucket.render_chunk
+
+    def counted(bucket):
+        before = dict(kernels.LAUNCHES)
+        out = orig(bucket)
+        rec = store.setdefault(bucket.key, dict.fromkeys(("steps", *before), 0))
+        rec["steps"] += 1
+        for k, v in kernels.LAUNCHES.items():
+            rec[k] += v - before[k]
+        return out
+
+    unified._Bucket.render_chunk = counted
+    try:
+        yield store
+    finally:
+        unified._Bucket.render_chunk = orig
+
+
+def build_unified(engine: str, pipeline: bool, device: str, voices=None, track_sec: float = 6.0):
+    """A UnifiedPool as the server builds it (``--pool unified``), filled
+    voice by voice so each bucket grows from 4: preset file voices (120 ms,
+    overlap 4; rates 0.5-2.0, -12..+12 st), kiosk file voices (200 ms,
+    overlap 1; rate 0.001, -12..+12 st) and live voices (120 ms, overlap 4;
+    -12..+12 st)."""
+    from golden_wasm import material
+
+    from bauklank_tpu_torch.serve.unified import UnifiedPool
+
+    n_preset, n_kiosk, n_live = voices or FRONT_VOICES[engine]
+    pool = UnifiedPool(sample_rate=SR, engine=engine, pipeline_fetch=pipeline,
+                       max_track_sec=track_sec, device=device)
+    x = material.case_input(1.0, 2, seconds=track_sec)[:, : int(track_sec * SR)]
+    tones = lambda n: np.linspace(-12.0, 12.0, n) if n > 1 else np.zeros(n)
+    for i, (rate, st) in enumerate(zip(np.linspace(0.5, 2.0, n_preset), tones(n_preset))):
+        pool.add_voice(f"p{i:02d}")
+        pool.load_track(f"p{i:02d}", np.roll(x, 1009 * i, axis=-1))
+        pool.start(f"p{i:02d}", when=0.0, rate=float(rate), semitones=float(st))
+    for i, st in enumerate(tones(n_kiosk)):
+        pool.add_voice(f"k{i:02d}", block_ms=200.0, overlap=1.0)
+        pool.load_track(f"k{i:02d}", np.roll(x, 2003 * i, axis=-1))
+        pool.start(f"k{i:02d}", when=0.0, offset=1.0, rate=0.001, semitones=float(st))
+    for i, st in enumerate(tones(n_live)):
+        pool.add_voice(f"l{i:02d}", mode="live")
+        pool.schedule(f"l{i:02d}", {"output": 0.0, "active": True, "semitones": float(st)})
+    return pool, x
+
+
+def render_unified(pool, quanta: int, first: int, times: list | None = None) -> np.ndarray:
+    """``quanta`` quanta of master, every live voice fed the quanta
+    ``first``.. of a 220 Hz tone; each quantum's host time to ``times``."""
+    n = pool.quantum
+    t = np.arange(first * n, (first + quanta) * n) / SR
+    src = (0.3 * np.sin(2 * np.pi * 220.0 * t)).astype(np.float32)
+    live = [name for name, v in pool.voices.items() if v.mode == "live"]
+    out = []
+    for q in range(quanta):
+        for name in live:
+            pool.feed(name, src[q * n:(q + 1) * n])
+        t0 = time.perf_counter()
+        out.append(pool.render(n))
+        if times is not None:
+            times.append(time.perf_counter() - t0)
+    return np.concatenate(out, axis=1)
+
+
+def front_door_pool(engine: str, device: str, card: str, launches: dict,
+                    voices=None, seconds: float = FRONT_SECONDS, track_sec: float = 6.0) -> None:
+    """One UnifiedPool with pipelined fetch: its buckets grown to size, the
+    render timed quantum by quantum with the launch counts set to 0 before
+    and read after; a twin with blocking fetch whose master must be equal
+    bit for bit; analyze of a file and a live voice; save_unified and
+    load_unified into a fresh pool, whose next quanta must equal the
+    original's bit for bit."""
+    import tempfile
+
+    import torch
+
+    from bauklank_tpu_torch import kernels
+    from bauklank_tpu_torch.utils import checkpoint
+
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    pool, x = build_unified(engine, True, device, voices, track_sec)
+    twin, _ = build_unified(engine, False, device, voices, track_sec)
+    caps = {f"{k[0]}:{k[1]}/{k[2]}": b.pool.capacity for k, b in pool.buckets.items()}
+    log(f"[front] {engine} unified pool built in {time.perf_counter() - t0:.2f} s: bucket "
+        f"capacities {caps} (each grown from {pool.bucket_capacity} by doubling)")
+    quanta = int(round(seconds * SR / pool.quantum))
+    times: list = []
+    per_bucket: dict = {}
+    kernels.reset_launches()
+    with per_bucket_launches(per_bucket):
+        master = render_unified(pool, quanta, 0, times)
+    if on_card:
+        torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    _check_path(f"{engine} unified pool", engine, counts, on_card)
+    kernels.reset_launches()
+    twin_master = render_unified(twin, quanta, 0)
+    twin_counts = dict(kernels.LAUNCHES)
+    _check_path(f"{engine} unified twin", engine, twin_counts, on_card)
+    for k in launches:
+        launches[k] += counts[k] + twin_counts[k]
+    if not (np.isfinite(master).all() and np.abs(master).max() > 0):
+        raise AssertionError(f"{engine} unified master is not finite or silent")
+    if not np.array_equal(master, twin_master):
+        raise AssertionError(f"{engine} unified master with pipelined fetch differs from the "
+                             f"blocking fetch's by {float(np.abs(master - twin_master).max())}")
+    steady = np.asarray(times[FRONT_WARM:]) * 1e3
+    per_q = {f"{k[0]}:{k[1]}/{k[2]}": {"steps": r["steps"], **{
+        name: round(v / quanta, 3) for name, v in r.items() if name != "steps" and v}}
+        for k, r in per_bucket.items()}
+    log(f"[front] {engine} unified: {quanta} quanta of {pool.quantum} samples "
+        f"({len(pool.voices)} voices); quantum p50 {np.percentile(steady, 50):.3f} ms, p99 "
+        f"{np.percentile(steady, 99):.3f} ms, max {steady.max():.3f} ms (first {FRONT_WARM} "
+        f"quanta apart: {np.asarray(times[:FRONT_WARM]).sum() * 1e3:.1f} ms in all); master "
+        f"equals the blocking-fetch twin's bit for bit over {master.shape[-1]} samples | {card}")
+    log(f"[front] {engine} unified launches {counts}; per quantum by bucket {per_q}")
+    log(f"[front] {engine} unified metrics {pool.metrics()}")
+    for name in ("p00", "l00"):
+        a = pool.analyze(name, n_buckets=64)
+        if a is None or not np.isfinite(a["spectrum"]).all() or not max(a["levels"]["peak"]) > 0:
+            raise AssertionError(f"{engine} analyze({name}) gave {a}")
+        log(f"[front] {engine} analyze {name}: peak {a['levels']['peak']}, rms "
+            f"{a['levels']['rms']}, {len(a['spectrum'])} spectrum bins")
+    del twin
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "unified")
+        checkpoint.save_unified(path, pool)
+        want = render_unified(pool, RESUME_QUANTA, quanta)
+        fresh = type(pool)(sample_rate=SR, engine=engine, pipeline_fetch=True,
+                           max_track_sec=track_sec, device=device)
+        checkpoint.load_unified(path, fresh)
+    for name, v in fresh.voices.items():
+        if v.mode == "file":
+            k = int(name[1:])
+            fresh.load_track(name, np.roll(x, (1009 if name[0] == "p" else 2003) * k, axis=-1))
+    got = render_unified(fresh, RESUME_QUANTA, quanta)
+    if not np.array_equal(want, got):
+        raise AssertionError(f"{engine} unified pool resumed from its checkpoint differs by "
+                             f"{float(np.abs(want - got).max())}")
+    log(f"[front] {engine} unified save/load on the card: the next {RESUME_QUANTA} quanta equal "
+        "the uninterrupted pool's bit for bit")
+
+
+def front_door_nodes(device: str, card: str, launches: dict, seconds: float = FRONT_SECONDS,
+                     long_sec: float = 0.5) -> None:
+    """A fidelity and a fast StretchNode at the kiosk configure, pulled in
+    30 ms quanta; then a fidelity node at configure(block=2048,
+    interval=64), long_step 32, whose band chain runs past the old bound
+    of 16."""
+    import torch
+
+    from golden_wasm import material
+
+    from bauklank_tpu_torch import kernels
+    from bauklank_tpu_torch.node import StretchNode
+
+    on_card = device == "cuda"
+    x = material.case_input(1.0, 2, seconds=6.0)
+    n = round(SR * 0.03)
+    for engine in ("fidelity", "fast"):
+        node = StretchNode(sample_rate=SR, channels=2, engine=engine, device=device)
+        node.configure(blockMs=200, overlap=1.0, splitComputation=True)
+        node.add_buffers([x[0], x[1]])
+        node.start(when=0.0, offset=0.5, rate=0.25, semitones=-5)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = np.concatenate([node.process_output(n) for _ in range(int(seconds * SR / n))], 1)
+        dt = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        _check_path(f"{engine} node", engine, counts, on_card)
+        for k in launches:
+            launches[k] += counts[k]
+        if not (np.isfinite(out).all() and np.abs(out).max() > 0):
+            raise AssertionError(f"{engine} node output is not finite or silent")
+        log(f"[front] {engine} node, kiosk configure (block {node.block_samples}, interval "
+            f"{node.interval_samples}): {out.shape[-1] / SR:.2f} s pulled in {n}-sample quanta "
+            f"in {dt:.2f} s, peak {float(np.abs(out).max()):.4f}, launches {counts} | {card}")
+    node = StretchNode(sample_rate=SR, channels=2, engine="fidelity", device=device)
+    node.configure(block=2048, interval=64)
+    node.add_buffers([x[0], x[1]])
+    node.start(when=0.0, offset=0.5, rate=0.7)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = node.process_output(int(long_sec * SR))
+    if on_card:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    _check_path("long-step node", "fidelity", counts, on_card)
+    for k in launches:
+        launches[k] += counts[k]
+    if not (np.isfinite(out).all() and np.abs(out).max() > 0):
+        raise AssertionError("long-step node output is not finite or silent")
+    log(f"[front] fidelity node at configure(block=2048, interval=64): long_step "
+        f"{node._scfg.long_step}, {out.shape[-1] / SR:.2f} s in {dt:.2f} s, peak "
+        f"{float(np.abs(out).max()):.4f}, launches {counts} | {card}")
+
+
+def long_step_chains(mhz: float, results: dict) -> None:
+    """The band chain past the old bound of 16, held bit-equal to its plain
+    version in phase 3's manner: the node's L = 32 (the shared history at
+    its limit) and pools of 64 streams at L = 24 (the history) and L = 40
+    (the general form, band b - L read back from the out planes); and the
+    two sequential kernels at S = 4 and 8, the unified buckets' first
+    widths."""
+    from bauklank_tpu_torch.engine.config import StretchConfig
+    from bauklank_tpu_torch.node import StretchNode
+    from bauklank_tpu_torch.serve.pool import StreamPool
+    from golden_wasm import material
+
+    x = material.case_input(1.0, 2, seconds=6.0)[:, : int(6 * SR)]
+    node = StretchNode(sample_rate=SR, channels=2, engine="fidelity", device="cuda")
+    node.configure(block=2048, interval=64)
+    node.add_buffers([x[0], x[1]])
+    node.start(when=0.0, offset=0.5, rate=0.7)
+    ops: dict = {}
+    with capture_operands(ops, "fidelity"):
+        node.process_output(64)
+    compare_kernels({"band_chain": ops["band_chain"]}, f"node-L{node._scfg.long_step}",
+                    results, mhz)
+    # blocks on the pool's FFT grid whose fft / 64 is 24 (fft 1536) and 40
+    # (fft 2560); the preset at the unified buckets' first widths
+    for block, s_n, h in ((1536, 64, 4), (2304, 64, 4), (5292, 4, 8), (5292, 8, 8)):
+        cfg = None if block == 5292 else StretchConfig(block=block, interval=64)
+        pool = StreamPool(capacity=s_n, hops_per_step=h, engine="fidelity", config=cfg,
+                          max_track_sec=6.0, device="cuda")
+        for i in range(s_n):
+            pool.load_track(f"s{i:02d}", np.roll(x, 1009 * i, axis=-1))
+            pool.start(f"s{i:02d}", rate=float(np.linspace(0.5, 2.0, s_n)[i]))
+        ops = {}
+        with capture_operands(ops, "fidelity"):
+            pool.step(fetch=True)
+        if cfg is not None and pool.scfg.long_step not in (24, 40):
+            raise AssertionError(f"block {block} gave long_step {pool.scfg.long_step}")
+        tag = (f"pool-L{pool.scfg.long_step}" if cfg is not None else f"preset-S{s_n}")
+        want = ("band_chain",) if cfg is not None else ("band_chain", "comp_cumsum")
+        compare_kernels({k: ops[k] for k in want}, tag, results, mhz)
+
+
 def main() -> int:
     import torch
 
@@ -1108,6 +1390,16 @@ def main() -> int:
         where_time_goes(kind, pool, 5, step_ms[kind], card)
     del pools, pool
     torch.cuda.empty_cache()
+
+    # 8. the serving front door: UnifiedPool (both engines), StretchNode,
+    # the band chain past long_step 16, the sequential kernels at S = 4, 8
+    t8 = time.perf_counter()
+    for engine in ("fidelity", "fast"):
+        front_door_pool(engine, "cuda", card, launches)
+        torch.cuda.empty_cache()
+    front_door_nodes("cuda", card, launches)
+    long_step_chains(mhz, results)
+    log(f"[front] phase 8 took {time.perf_counter() - t8:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

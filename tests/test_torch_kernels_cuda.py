@@ -253,6 +253,26 @@ def test_band_chain_edges(dev, c_n, long_step, s_n):
         assert _same_bits(got, band_chain_ref(lead, chan, long_step)), b_n
 
 
+@pytest.mark.parametrize("s_n", [4, 8, 33], ids=lambda s: f"s{s}")
+@pytest.mark.parametrize("long_step", [17, 24, 32, 33, 40, 100], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("c_n", [1, 2, 3], ids=lambda c: f"c{c}")
+def test_band_chain_long_steps(dev, c_n, long_step, s_n):
+    """long_step past the old bound of 16: up to 32 (kHistory) band b - L
+    comes from the shared history, past it from the out planes (the
+    general form); B under long_step, at 2 long_step and well past it."""
+    for b_n in (5, 2 * long_step, 2 * long_step + 1, 300):
+        rng = np.random.default_rng(((c_n * 17 + long_step) * 131 + s_n) * 59 + b_n)
+        lead, chan = (_t(a, dev) for a in _chain_operands(rng, c_n, b_n, s_n))
+        got = _launched("band_chain", lambda: band_chain(lead, chan, long_step))
+        assert _same_bits(got, band_chain_ref(lead, chan, long_step)), b_n
+
+
+def test_band_chain_refuses_more_channels_than_its_widest_form(dev):
+    z = lambda *s: torch.zeros(s, device=dev)
+    with pytest.raises(ValueError, match="at most 8 channels"):
+        band_chain(z(9, 8, 4), z(9, 6, 8, 4), 2)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_band_chain_root_ratio_rounds_as_the_library(dev, seed):
     """The chain's branch-free sqrt(a / b) against __fsqrt_rn(__fdiv_rn())

@@ -28,7 +28,11 @@ from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.kernels.gather import frac_gather, pallas_gather
 from bauklank_tpu_torch.kernels.interp import banded_interp
 from bauklank_tpu_torch.ops import mdft
+from bauklank_tpu_torch.engine.live import init_live_state
+from bauklank_tpu_torch.node import StretchNode
+from bauklank_tpu_torch.serve.livepool import LivePool
 from bauklank_tpu_torch.serve.pool import StreamPool
+from bauklank_tpu_torch.serve.unified import UnifiedPool
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(bauklank_tpu_torch.__file__).parent
@@ -49,6 +53,14 @@ def test_no_jax_import(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_front_page_exports_what_the_jax_package_exports():
+    import bauklank_tpu
+
+    assert sorted(bauklank_tpu_torch.__all__) == sorted(bauklank_tpu.__all__)
+    for name in bauklank_tpu_torch.__all__:
+        assert getattr(bauklank_tpu_torch, name) is not None
 
 
 def test_kernel_sources_and_flags():
@@ -184,6 +196,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: core.init_state(cfg),
         lambda: init_batched_state(cfg, 2),
         lambda: StretchParams.make(),
+        lambda: LivePool(capacity=1),
+        lambda: UnifiedPool(),
+        lambda: StretchNode(),
+        lambda: init_live_state(cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -227,8 +243,8 @@ def test_wrappers_refuse_bad_operands():
         band_chain(f32(8, 16, 4), f32(2, 6, 16, 4), 2)
     with pytest.raises(ValueError, match="matching"):
         band_chain(f32(9, 16, 4), f32(2, 6, 15, 4), 2)
-    with pytest.raises(ValueError, match="long_step"):
-        band_chain(f32(9, 16, 4), f32(2, 6, 16, 4), 17)
+    # any long_step >= 1 and any channel count on the CPU, as the Pallas kernel
+    assert band_chain(f32(9, 16, 4), f32(9, 6, 16, 4), 40).shape == (9, 2, 16, 4)
     with pytest.raises(ValueError, match="long_step"):
         band_chain(f32(9, 16, 4), f32(2, 6, 16, 4), 0)
     with pytest.raises(ValueError, match="device"):

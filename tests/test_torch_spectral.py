@@ -259,15 +259,17 @@ def _edge_chain_operands(rng, c_n, b_n, s_n):
 
 @pytest.mark.parametrize("b_n", [1, 3, 300], ids=lambda v: f"b{v}")
 @pytest.mark.parametrize("s_n", [1, 33], ids=lambda v: f"s{v}")
-@pytest.mark.parametrize("long_step", [1, 2, 5, 16], ids=lambda v: f"L{v}")
+@pytest.mark.parametrize("long_step", [1, 2, 5, 16, 24, 40], ids=lambda v: f"L{v}")
 @pytest.mark.parametrize("c_n", [1, 2, 3], ids=lambda v: f"c{v}")
 def test_band_chain_ref_vs_pallas_edges(c_n, long_step, s_n, b_n):
     """The plain version against the Pallas kernel in interpret mode (S
     padded with zero streams to its 128 lanes, as engine.spectral pads it)
     over the shapes the CUDA kernel's edges depend on: every channel form,
-    long_step 1 (no ring), 2, 5 and 16, one stream and 33, B of 1, under
-    long_step and 300.  Relative 1e-5: XLA contracts the interpreted
-    body's multiply-adds into FMAs."""
+    long_step 1 (no ring), 2, 5 and 16, 24 (the card kernel's shared
+    history) and 40 (its general form, which reads band b - L back from
+    its output), one stream and 33, B of 1, under long_step and 300 (past
+    2 long_step).  Relative 1e-5: XLA contracts the interpreted body's
+    multiply-adds into FMAs."""
     rng = np.random.default_rng(((c_n * 17 + long_step) * 37 + s_n) * 311 + b_n)
     lead, chan = _edge_chain_operands(rng, c_n, b_n, s_n)
     pad = (-s_n) % LANE
