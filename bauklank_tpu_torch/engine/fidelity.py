@@ -112,11 +112,16 @@ def _consts(cfg: SpectralConfig, device: torch.device, zero_head: int = 0):
     return torch.from_numpy(w).to(device), unit_phase(rot.astype(np.float32), device)
 
 
+def _padded_spectra(cfg: SpectralConfig, padded: torch.Tensor) -> torch.Tensor:
+    """Windowed frames zero-padded to [..., fft] -> zero-phase referenced
+    [..., bands]."""
+    _, rot = _consts(cfg, padded.device)
+    return mdft.cmul(mdft.mdft(padded), rot)
+
+
 def _spectra(cfg: SpectralConfig, windowed: torch.Tensor) -> torch.Tensor:
     """Windowed frames [..., block] -> zero-phase referenced [..., bands]."""
-    _, rot = _consts(cfg, windowed.device)
-    padded = torch.nn.functional.pad(windowed, (0, cfg.fft - cfg.block))
-    return mdft.cmul(mdft.mdft(padded), rot)
+    return _padded_spectra(cfg, torch.nn.functional.pad(windowed, (0, cfg.fft - cfg.block)))
 
 
 def analyse_frames(cfg: SpectralConfig, audio: torch.Tensor, ends: torch.Tensor,
@@ -141,10 +146,11 @@ def synthesise_frames(cfg: SpectralConfig, specs: torch.Tensor) -> torch.Tensor:
 def _analyse_many(cfg: SpectralConfig, audios, ends, zero_head: int = 0):
     """Batched analyses across the pool: [S, C, T] x [S, F] ends ->
     [S, F, C, bands].  The windowed frame fetch is kernel 1; it reads
-    exactly ``block`` samples per frame."""
+    exactly ``block`` samples per frame and writes them into rows of
+    ``fft`` samples with a zero tail, so no pad pass runs on the card."""
     starts = (ends.to(torch.int64) - cfg.block).to(torch.int32).contiguous()
-    frames = frames_windowed(audios, starts, _consts(cfg, audios.device, zero_head)[0])
-    return _spectra(cfg, frames)
+    window = _consts(cfg, audios.device, zero_head)[0]
+    return _padded_spectra(cfg, frames_windowed(audios, starts, window, cfg.fft))
 
 
 def _analyse_cur_prev(cfg: SpectralConfig, audios, ends, full_prev: bool = False):

@@ -37,7 +37,7 @@ _I = ctypes.c_int
 # C signatures: every function returns cudaGetLastError() as an int and
 # takes the CUDA stream as its last argument
 SIGNATURES = {
-    "bk_frames_windowed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "bk_frames_windowed": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "bk_comp_cumsum": (_P, _P, _P, _I, _I, _I, _P),
     "bk_frac_gather": (_P, _P, _P, _I, _I, _I, _I, _P),
     "bk_pallas_gather": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -25,7 +25,10 @@ Phases (any failure raises and exits non-zero without the result line):
    their operands left in the L2, the band chain's branch-free
    ``sqrt(a / b)`` held to the library's rounding on 2^30 random pairs, and
    the cycles one band's step takes from registers (what its loop could
-   reach at best);
+   reach at best; the band chain's second bound); the frame fetch
+   (kernel 1) in both forms, the plain rows and the rows padded to the
+   fidelity FFT size, at each pool's shape and at the front door's two
+   fidelity bucket shapes (S=64, two frames a stream, block 5376 and 9216);
 4. each stage of both engines' steps on the card against the same stage
    on the host CPU, fed the same inputs (the CPU path is the one the
    tests hold against the JAX package): the MDFT within a relative bound,
@@ -43,19 +46,23 @@ Phases (any failure raises and exits non-zero without the result line):
    fast pool driven through ``StreamPool`` (tracks, starts, ``set``
    messages through ``protocol.parse_line`` and ``apply_set``), 2 warm-up
    and 6 to 10 timed steps each, the launch counts set to 0 before each
-   pool and read after it; then 5 steps of the fidelity preset pool and of
-   the fast pool with a formant voice, and ``pallas_gather`` driven
-   directly, once;
+   pool and read after it; the two fidelity pools again with the analysis
+   on the plain frame rows padded by PyTorch (as before kernel 1 wrote
+   padded rows), their masters held equal bit for bit; then 5 steps of
+   the fidelity preset pool and of the fast pool with a formant voice, and
+   ``pallas_gather`` driven directly, once;
 7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
    pool, split by the step's stages (host and device time each), the
-   PyTorch ops that take most device time inside the gather stage, and
-   the card's busy share;
+   PyTorch ops that take most device time inside the gather stage, every
+   op under the fidelity analysis (which must hold no pad), and the
+   card's busy share;
 8. the serving front door, as ``serve/server.py`` builds it: a
    ``UnifiedPool`` with pipelined fetch for each engine (fidelity: 64
    preset and 64 kiosk file voices and 16 live ones; fast: 32, 32 and 8;
    every bucket grown from 4 by doubling), 4 s of master in 30 ms quanta
    with the quantum's host time and each bucket's launches, a twin with
-   blocking fetch whose master must be equal bit for bit, ``analyze`` of a
+   blocking fetch whose master must be equal bit for bit (the fidelity
+   twin's analysis on the plain frame rows padded by PyTorch), ``analyze`` of a
    file and a live voice, and ``save_unified``/``load_unified`` resumed
    bit for bit; a fidelity and a fast ``StretchNode`` at the kiosk
    configure and a fidelity node at ``configure(block=2048, interval=64)``
@@ -160,9 +167,16 @@ OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
 # reciprocal root) of 17-19 cycles and 3-5 dependent multiply-adds, twice
 # a band (leader, then follower), so a band's step read from registers
 # takes 232 cycles, not 76 (PERF.md section 6).  The bound is left as it
-# was: it is a floor, and the rows keep one yardstick.
+# was: it is a floor, and the rows keep one yardstick.  Beside it phase 3
+# prints a second bound, the band's step read from registers
+# (band_step_cycles), so that the share of the first is not read as
+# headroom.
 CHAIN_DEPTH = {"band_chain": 19, "comp_cumsum": 7}
 DEP_CYCLES = 4
+# set once in main: the nvidia-smi name and power limit that label every
+# reading, and band_step_cycles()'s reading, the band chain's second bound
+CARD = ""
+STEP_CYCLES: dict = {}
 
 
 def log(*a):
@@ -282,6 +296,28 @@ def chainfetch_switch(on: bool):
             os.environ["BAUKLANK_CHAINFETCH"] = old
 
 
+@contextlib.contextmanager
+def plain_frame_rows():
+    """The fidelity analysis as it ran before kernel 1 wrote padded rows:
+    the plain frame fetch, then PyTorch's pad to the FFT size."""
+    import torch
+
+    from bauklank_tpu_torch.engine import fidelity
+    from bauklank_tpu_torch.kernels.frames import frames_windowed
+
+    def plain_then_pad(audio, starts, window, pitch=None):
+        rows = frames_windowed(audio, starts, window)
+        return rows if pitch is None else torch.nn.functional.pad(
+            rows, (0, pitch - window.shape[0]))
+
+    saved = fidelity.frames_windowed
+    fidelity.frames_windowed = plain_then_pad
+    try:
+        yield
+    finally:
+        fidelity.frames_windowed = saved
+
+
 def make_pool(kind: str, device: str):
     """The fidelity preset serving pool (S=128, H=8, 120/30 ms; "preset"
     and "preset-fused" build the same pool, the latter is stepped with the
@@ -361,6 +397,23 @@ def _five_positions(ib, us, ul, step, long_step: int):
     return torch.cat([ib, ib - c, ib - float(long_step) * c, us, ul], dim=1)
 
 
+def _pitch(args) -> int:
+    """The row pitch of a frame fetch: its fourth argument, else the block."""
+    return args[3] if len(args) > 3 and args[3] is not None else args[2].shape[0]
+
+
+def frame_forms(args) -> list:
+    """Kernel 1's call as the path made it, and its other form: the plain
+    rows (pitch = block, the fast engine's) and rows of the fidelity FFT
+    size for this block with a zero tail (the fidelity analysis's)."""
+    from bauklank_tpu_torch.engine.spectral import SpectralConfig
+
+    audio, starts, window = args[:3]
+    plain = (audio, starts, window)
+    padded = plain + (SpectralConfig(audio.shape[1], window.shape[0], 1).fft,)
+    return [args, plain if len(args) > 3 else padded]
+
+
 def bound(name: str, args) -> tuple[float, str, int, int]:
     """(bound_ms, bound_by, bytes, operations): the least time the card
     could take for this call, the larger of its bytes over the memory rate
@@ -369,9 +422,9 @@ def bound(name: str, args) -> tuple[float, str, int, int]:
     positions address; for the frame fetch, the samples these frames
     cover) and each output once."""
     if name == "frames_windowed":
-        audio, starts, window = args
+        audio, starts, window = args[:3]
         s_n, c_n, t_n = audio.shape
-        out = s_n * starts.shape[1] * c_n * window.shape[0]
+        out = s_n * starts.shape[1] * c_n * _pitch(args)
         need = _samples_needed(starts, window.shape[0], t_n) * c_n + starts.numel() + window.numel()
     elif name == "comp_cumsum":
         out = 2 * args[0].numel()
@@ -461,6 +514,8 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
     }
     for name, calls in ops.items():
         kern, ref = pairs[name]
+        if name == "frames_windowed":
+            calls = frame_forms(calls[0])
         for j, args in enumerate(calls):
             got, want = kern(*args), ref(*args)
             got = got if isinstance(got, tuple) else (got,)
@@ -515,6 +570,16 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                     f"{chain_ms:.4f} ms")
                 if chain_ms > bound_ms:
                     bound_ms, bound_by = chain_ms, "operations"
+                if name == "band_chain" and STEP_CYCLES:
+                    # the second column: the step as the card runs it, read
+                    # from registers (the floor the loop could reach)
+                    lead, chan, long_step = args
+                    key = ("step_1ch" if chan.shape[0] == 1 else
+                           "step_2ch_long_step_1" if long_step == 1 else "step_2ch")
+                    reg_ms = steps * STEP_CYCLES[key] / (mhz * 1e3)
+                    warm_note += (f"; the step from registers ({key} {STEP_CYCLES[key]:.1f} "
+                                  f"cycles a band) {reg_ms:.4f} ms, {reg_ms / ms:.1%} of it "
+                                  "reached")
             lib = library_call(lib_name, lib_args)
             lib_ms, lib_note = None, ""
             if lib is not None:
@@ -527,11 +592,14 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 what = "two grid_sample calls" if name == "chainfetch" else "grid_sample"
                 lib_note = f", {what} {lib_ms:.4f} ms (rel. diff {lib_err:.2e})"
             shapes = " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))
+            if name == "frames_windowed":
+                shapes += (f" pitch {_pitch(args)}"
+                           + (" (the path's form)" if j == 0 else " (the other form)"))
             log(f"[kernel] {tag} {name}#{j} {shapes}: max_abs_err={err!r} "
                 f"kernel {ms:.4f} ms{warm_note}, plain {plain_ms:.4f} ms{lib_note}; "
                 f"bound {bound_ms:.4f} ms "
                 f"by {bound_by} ({nbytes / 1e6:.1f} MB, {nops / 1e6:.1f} Mop; "
-                f"{bound_ms / ms:.1%} of it reached){copy_note}")
+                f"{bound_ms / ms:.1%} of it reached){copy_note} | {CARD}")
             if not finite or err > TOLERANCE:
                 raise AssertionError(f"{name} ({tag}) disagrees with its plain version: {err}")
             # the result line reports kernel 5 at the main path's call: the
@@ -541,6 +609,32 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
                                  "library_ms": lib_ms}
+
+
+def front_bucket_frames(results: dict, mhz: float) -> None:
+    """Kernel 1 at the front door's fidelity bucket shapes (phase 8's
+    UnifiedPool): 64 voices a bucket stepping H = 1, so two frames a
+    stream; the preset bucket (120 ms, overlap 4: block 5376 after the
+    grid rounding) and the kiosk one (200 ms, overlap 1: block 9216), on
+    operands captured from one step of a pool built as the bucket is."""
+    from golden_wasm import material
+
+    from bauklank_tpu_torch.engine.config import StretchConfig
+    from bauklank_tpu_torch.serve.pool import StreamPool
+
+    x = material.case_input(1.0, 2, seconds=6.0)[:, : int(6 * SR)]
+    for tag, block, interval, rates, offset in (
+            ("front-preset", 5292, 1323, np.linspace(0.5, 2.0, 64), 0.0),
+            ("front-kiosk", 8820, 8820, np.full(64, 0.001), 1.0)):
+        pool = StreamPool(capacity=64, hops_per_step=1, engine="fidelity", max_track_sec=6.0,
+                          config=StretchConfig(block=block, interval=interval), device="cuda")
+        for i in range(64):
+            pool.load_track(f"s{i:02d}", np.roll(x, 1009 * i, axis=-1))
+            pool.start(f"s{i:02d}", when=0.0, offset=offset, rate=float(rates[i]))
+        ops: dict = {}
+        with capture_operands(ops, "fidelity"):
+            pool.step(fetch=True)
+        compare_kernels({"frames_windowed": ops["frames_windowed"]}, tag, results, mhz)
 
 
 def _snr(ref, got) -> float:
@@ -892,6 +986,24 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile] {kind} top: {us / steps / 1e3:.3f} ms/step "
             f"({us / steps / 1e3 / busy:.1%}) {name[:90]}")
+    if pool.engine == "fidelity":
+        # every op under the analysis stage: kernel 1 writes the padded rows,
+        # so no pad runs there
+        below: dict = {}
+
+        def walk(event):
+            for child in event.cpu_children:
+                below[child.name] = below.get(child.name, 0) + 1
+                walk(child)
+
+        for e in events:
+            if e.name == "fidelity.analyse" and e.device_type == torch.autograd.DeviceType.CPU:
+                walk(e)
+        log(f"[profile] {kind} fidelity.analyse, every op below it: " + ", ".join(
+            f"{name} x{n / steps:g}" for name, n in sorted(below.items())))
+        pads = sorted(name for name in below if "pad" in name)
+        if pads:
+            raise AssertionError(f"{kind}: the fidelity analysis ran {pads}")
     # the PyTorch ops called directly inside the gather stage, by device time
     stage = GATHER_STAGE[pool.engine]
     inside: dict = {}
@@ -1060,7 +1172,10 @@ def front_door_pool(engine: str, device: str, card: str, launches: dict,
     counts = dict(kernels.LAUNCHES)
     _check_path(f"{engine} unified pool", engine, counts, on_card)
     kernels.reset_launches()
-    twin_master = render_unified(twin, quanta, 0)
+    # the fidelity twin's analysis pads the plain rows with PyTorch, as it
+    # ran before kernel 1 wrote padded rows: the masters must still agree
+    with plain_frame_rows() if engine == "fidelity" else contextlib.nullcontext():
+        twin_master = render_unified(twin, quanta, 0)
     twin_counts = dict(kernels.LAUNCHES)
     _check_path(f"{engine} unified twin", engine, twin_counts, on_card)
     for k in launches:
@@ -1078,7 +1193,9 @@ def front_door_pool(engine: str, device: str, card: str, launches: dict,
         f"({len(pool.voices)} voices); quantum p50 {np.percentile(steady, 50):.3f} ms, p99 "
         f"{np.percentile(steady, 99):.3f} ms, max {steady.max():.3f} ms (first {FRONT_WARM} "
         f"quanta apart: {np.asarray(times[:FRONT_WARM]).sum() * 1e3:.1f} ms in all); master "
-        f"equals the blocking-fetch twin's bit for bit over {master.shape[-1]} samples | {card}")
+        f"equals the blocking-fetch twin's bit for bit over {master.shape[-1]} samples"
+        + (" (the twin's analysis on the plain frame rows padded by PyTorch)"
+           if engine == "fidelity" else "") + f" | {card}")
     log(f"[front] {engine} unified launches {counts}; per quantum by bucket {per_q}")
     log(f"[front] {engine} unified metrics {pool.metrics()}")
     for name in ("p00", "l00"):
@@ -1214,7 +1331,8 @@ def main() -> int:
 
     # 1. device
     t_start = time.perf_counter()
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     mhz = max_sm_mhz()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1236,6 +1354,7 @@ def main() -> int:
     from bauklank_tpu_torch.kernels.bandchain import band_step_cycles, root_ratio_mismatches
 
     cyc = band_step_cycles()
+    STEP_CYCLES.update(cyc)
     log(f"[bound] one warp alone, cycles: a dependent float add {cyc['fadd_dependent']:.2f}; "
         f"band_chain's step from registers "
         f"{cyc['step_2ch']:.1f} (2 channels), {cyc['step_2ch_long_step_1']:.1f} (2 channels, "
@@ -1295,6 +1414,8 @@ def main() -> int:
                             results, mhz)
         del pool, ops
         torch.cuda.empty_cache()
+    front_bucket_frames(results, mhz)
+    torch.cuda.empty_cache()
 
     # 4. each stage of both steps on the card against the host CPU's
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -1343,6 +1464,18 @@ def main() -> int:
         raise AssertionError(f"the fused pool's master differs from the unfused pool's by {diff}")
     log(f"[serve] preset-fused master equals preset's bit for bit over "
         f"{served['preset'][1].shape[-1]} samples")
+    # the fidelity pools again with the analysis as it ran before kernel 1
+    # wrote padded rows (the plain rows, padded by PyTorch): the same master
+    for kind in ("preset", "kiosk"):
+        with plain_frame_rows():
+            _, master = step_pool(make_pool(kind, "cuda"), 2, timed[kind])
+        if not np.array_equal(master, served[kind][1]):
+            diff = float(np.abs(master - served[kind][1]).max())
+            raise AssertionError(f"{kind}: the master on the padded rows differs from the "
+                                 f"plain rows' by {diff}")
+        log(f"[serve] {kind} master on the padded frame rows equals the plain rows padded by "
+            f"PyTorch bit for bit over {master.shape[-1]} samples")
+    torch.cuda.empty_cache()
     # the fidelity preset pool with a formant voice: the envelope lookup is a
     # third frac_gather launch a step; the fast pool: three gathers a step
     for kind, per_step in (("preset", {**PER_STEP["preset"], "frac_gather": 3}),

@@ -64,6 +64,168 @@ def _same_bits(a, b):
             and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
 
 
+# kernel 1's two forms: the plain rows (pitch = block), rows of a pitch
+# that takes 16-byte stores (a multiple of 4 floats, as every fft is) and
+# rows that do not
+PITCHES = {"plain": lambda block: None, "padded": lambda block: -(-(block + 300) // 4) * 4,
+           "padded-odd": lambda block: block + 301 + (block % 4 == 3)}
+
+
+def _frames_equal(dev, audio, starts, win, pitch):
+    """Kernel 1 against its plain version: one launch, equal bit for bit."""
+    got = _launched("frames_windowed", lambda: frames_windowed(audio, starts, win, pitch))
+    want = frames_windowed_ref(audio, starts, win, pitch)
+    assert got.shape == want.shape
+    assert _same_bits(got, want)
+    return got
+
+
+def _edge_starts(t, block, f_n, rng):
+    """Every residue mod 4 in range, negative (partly and wholly before the
+    track), at T - 1, at T and past T, then random ones over the track."""
+    edge = [0, 1, 2, 3, 5, 6, 7, 8, -1, -2, -3, -block + 1, -block, -block - 7, -5000,
+            t - 1, t - 2, t - 3, t, t + 1, t + 4099, t - block, t - block + 1, t - block - 1]
+    more = rng.integers(-block, t + 10, max(f_n, len(edge))).tolist()
+    return np.asarray((edge + more)[:f_n] if f_n > len(edge) else edge[:f_n], np.int32)
+
+
+@pytest.mark.parametrize("form", list(PITCHES))
+@pytest.mark.parametrize("block_mod", [0, 1, 2, 3], ids=lambda v: f"b{v}")
+@pytest.mark.parametrize("t_mod", [0, 1, 2, 3], ids=lambda v: f"t{v}")
+def test_frames_windowed_edges(dev, t_mod, block_mod, form):
+    """T % 4 and block % 4 in {0, 1, 2, 3} (a row base and a frame end off
+    16 bytes), both forms, the starts of ``_edge_starts`` in each stream."""
+    rng = np.random.default_rng(100 * t_mod + 10 * block_mod)
+    t, block = 9000 + t_mod, 1536 + block_mod
+    audio = _t(rng.standard_normal((3, 2, t)).astype(np.float32), dev)
+    starts = _t(np.stack([np.roll(_edge_starts(t, block, 24, rng), 5 * i) for i in range(3)]),
+                dev)
+    win = _t(rng.uniform(0.1, 1, block).astype(np.float32), dev)
+    pitch = PITCHES[form](block)
+    got = _frames_equal(dev, audio, starts, win, pitch)
+    assert got.shape[-1] == (pitch or block)
+    assert form != "padded-odd" or pitch % 4 != 0
+
+
+@pytest.mark.parametrize("form", ["plain", "padded"])
+@pytest.mark.parametrize("f_n", [2, 9, 64], ids=lambda v: f"f{v}")
+@pytest.mark.parametrize("c_n", [1, 2], ids=lambda v: f"c{v}")
+@pytest.mark.parametrize("s_n", [1, 64], ids=lambda v: f"s{v}")
+def test_frames_windowed_shapes(dev, s_n, c_n, f_n, form):
+    """S = 1 (a node) and 64, mono and stereo, 2 to 64 frames a stream
+    (several groups of frames, a ragged last group), frames close together
+    as a slow voice's and spread as a fast one's."""
+    rng = np.random.default_rng(1000 * s_n + 10 * c_n + f_n)
+    t, block = 30000, 5292
+    audio = _t(rng.standard_normal((s_n, c_n, t)).astype(np.float32), dev)
+    first = rng.integers(-block, t, (s_n, 1))
+    step = rng.integers(0, 2700, (s_n, 1))
+    starts = _t((first + step * np.arange(f_n)).astype(np.int32), dev)
+    win = _t(rng.uniform(0.1, 1, block).astype(np.float32), dev)
+    _frames_equal(dev, audio, starts, win, PITCHES[form](block) if form != "plain" else None)
+
+
+@pytest.mark.parametrize("form", ["plain", "padded", "padded-odd"])
+def test_frames_windowed_spread_and_unsorted_starts(dev, form):
+    """Groups of frames far apart: a seek between cur frames, unsorted
+    starts, the prev family one interval back, frames that overlap and
+    frames that only touch, and a block of 20001 samples (20 tiles)."""
+    rng = np.random.default_rng(3)
+    t = 200000
+    audio = _t(rng.standard_normal((2, 2, t)).astype(np.float32), dev)
+    for block in (1024, 5292, 20001):
+        cur = np.array([1000, 1009, 150000, 150010, 7000, 6999, 90000, 1000 + block],
+                       np.int64)
+        starts = np.stack([np.concatenate([cur, cur - 8820]),
+                           np.concatenate([cur[::-1] + 3, cur + 1024])]).astype(np.int32)
+        win = _t(rng.uniform(0.1, 1, block).astype(np.float32), dev)
+        _frames_equal(dev, audio, _t(starts, dev), win, PITCHES[form](block))
+
+
+@pytest.mark.parametrize("form", list(PITCHES))
+def test_frames_windowed_non_finite_audio(dev, form):
+    """NaN and inf in the audio under zero and non-zero window samples: the
+    product propagates them (NaN * 0 is NaN) inside [0, T), and a sample
+    outside [0, T) or past the block is 0 whatever the audio holds."""
+    rng = np.random.default_rng(4)
+    t, block = 4001, 1030
+    x = rng.standard_normal((2, 2, t)).astype(np.float32)
+    x[0, 0, 100:108] = [np.nan, np.inf, -np.inf, np.nan, np.inf, 1.0, -np.inf, np.nan]
+    x[1, 1, -3:] = np.nan
+    x[1, 0, :4] = np.inf
+    w = rng.uniform(0.1, 1, block).astype(np.float32)
+    w[:9] = 0.0
+    w[-5:] = 0.0
+    starts = np.array([[95, 100, 101, 102, 103, 104, -1000, 0],
+                       [t - 3, t - block + 2, -2, 0, 1, t - 10, t, -block + 3]], np.int32)
+    got = _frames_equal(dev, _t(x, dev), _t(starts, dev), _t(w, dev), PITCHES[form](block))
+    # NaN at start 100 (under a zero window sample), inf past the window's zeros
+    assert torch.isnan(got[0, 1, 0, 0]) and torch.isinf(got[0, 0, 0, 9])
+    assert not torch.isnan(got[..., block:]).any()
+
+
+@pytest.mark.parametrize("form", list(PITCHES))
+def test_frames_windowed_unaligned_operands(dev, form):
+    """Operands that are views off 16 bytes: the audio's first sample (the
+    aligned float4 of a frame's first samples then starts before the
+    tensor, and is read float by float) and the window (the rows then take
+    one float a column)."""
+    rng = np.random.default_rng(5)
+    t, block = 6000, 2048
+    flat = _t(rng.standard_normal(2 * 2 * t + 3).astype(np.float32), dev)
+    wflat = _t(rng.uniform(0.1, 1, block + 1).astype(np.float32), dev)
+    starts = _t(np.array([[0, 1, 2, 3, -1, t - block], [t - 1, 4, 5, 6, 7, -3]], np.int32), dev)
+    for off in (1, 2, 3):
+        audio = flat[off:off + 2 * 2 * t].view(2, 2, t)
+        _frames_equal(dev, audio, starts, wflat[1:], PITCHES[form](block))
+        _frames_equal(dev, audio, starts, wflat[:block], PITCHES[form](block))
+
+
+def test_frames_windowed_live_ring(dev):
+    """The coupled drive's shape: the rolled input ring of the preset
+    (block + 9 intervals), constant frame ends, cur and prev families."""
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    cfg, h = fid.SpectralConfig(2, 5292, 1323), 8
+    ring = fid.live_fidelity_ring_len(cfg, h)
+    rng = np.random.default_rng(6)
+    audio = _t(rng.standard_normal((16, 2, ring)).astype(np.float32), dev)
+    ends = ring - (h - np.arange(h)) * cfg.interval
+    starts = np.concatenate([ends, ends - cfg.interval]) - cfg.block
+    starts = _t(np.broadcast_to(starts, (16, 2 * h)).astype(np.int32), dev)
+    win = fid._consts(cfg, torch.device(dev))[0]
+    for pitch in (None, cfg.fft):
+        _frames_equal(dev, audio, starts, win, pitch)
+
+
+def test_frames_windowed_refuses_a_short_pitch(dev):
+    z = lambda *shape, **kw: torch.zeros(*shape, device=dev, **kw)
+    with pytest.raises(ValueError, match="shorter than the block"):
+        frames_windowed(z(1, 2, 100), z(1, 2, dtype=torch.int32), z(64), 63)
+
+
+def test_analyse_many_runs_no_pad_on_the_card(dev, monkeypatch):
+    """The fidelity analysis on the card: one launch of the padded form and
+    no pad, its spectra equal bit for bit to the plain form padded by
+    PyTorch (what the step ran before)."""
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    cfg = fid.SpectralConfig(2, 5292, 1323)
+    rng = np.random.default_rng(8)
+    audio = _t(rng.standard_normal((8, 2, 60000)).astype(np.float32), dev)
+    ends = _t(np.sort(rng.integers(0, 66000, (8, 16)), axis=1).astype(np.int32), dev)
+    starts = (ends.to(torch.int64) - cfg.block).to(torch.int32)
+    win = fid._consts(cfg, torch.device(dev))[0]
+    want = fid._spectra(cfg, frames_windowed(audio, starts, win))
+
+    def no_pad(*args, **kwargs):
+        raise AssertionError("the fidelity analysis ran a pad")
+
+    monkeypatch.setattr(torch.nn.functional, "pad", no_pad)
+    got = _launched("frames_windowed", lambda: fid._analyse_many(cfg, audio, ends))
+    assert torch.equal(got, want)
+
+
 def test_comp_cumsum(dev):
     x = _t(np.random.default_rng(1).standard_normal((3, 700, 300)).astype(np.float32), dev)
     hi, lo = _launched("comp_cumsum", lambda: comp_cumsum(x))
