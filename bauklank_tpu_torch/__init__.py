@@ -1,7 +1,8 @@
 """bauklank_tpu_torch — the PyTorch + CUDA port of ``bauklank_tpu``.
 
 The package mirrors ``bauklank_tpu``'s layout (``engine/``, ``ops/``,
-``serve/``, ``node/``, ``schedule/``, ``utils/``) so each ported module
+``serve/``, ``node/``, ``schedule/``, ``models/``, ``runtime/``,
+``utils/``) so each ported module
 sits at the same path as its JAX counterpart, which stays in the
 repository as the reference it is tested against.  Plain tensor code is
 PyTorch; the seven kernels (one for each ``pl.pallas_call`` of the JAX
@@ -22,7 +23,15 @@ Ported so far: both engines — the fast one
 ``analyze``, :class:`serve.livepool.LivePool`,
 :class:`serve.unified.UnifiedPool`); the node
 (:class:`node.StretchNode`); checkpoints in the JAX package's format
-(:mod:`utils.checkpoint`); the monitoring ops (:mod:`ops.analyze`).
+(:mod:`utils.checkpoint`); the monitoring ops (:mod:`ops.analyze`); the
+server front door (:mod:`serve.server` with :mod:`serve.slots`,
+:mod:`serve.serial`, :mod:`serve.statuspage` and :mod:`serve.client`);
+the command line (:mod:`cli`, ``python -m bauklank_tpu_torch``, whose
+``--device`` stands where the JAX CLI reads ``JAX_PLATFORMS``); the voice
+presets and topology (:mod:`models`); the host runtime (:mod:`runtime`:
+the C++ WAV codec built with ``g++``, the ring buffer, the mp3 decoder)
+and the audio I/O over it (:mod:`utils.audio`, resampling through
+:mod:`ops.resample`).
 """
 
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_cheaper, preset_default

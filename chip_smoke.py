@@ -69,7 +69,23 @@ Phases (any failure raises and exits non-zero without the result line):
    (long_step 32); the band chain at long_step 32, 24 and 40 (the general
    form) and the two sequential kernels at S = 4 and 8, each against its
    plain version.  The launch counts are set to 0 before each pool or
-   node and read after it.
+   node and read after it;
+9. the server and the CLI as a user starts them: ``stretch`` through
+   ``bauklank_tpu_torch.cli.main`` in this process and as ``python3 -m
+   bauklank_tpu_torch`` (a 30 s stereo tone and noise from ``--seed``,
+   rate 0.5, -12 st, 20 s out), the two files equal bit for bit, both
+   >= 80 dB against ``stretch_offline`` on the card, dominant 220 Hz; then
+   the ``ControlServer`` as ``serve/server.py:main`` builds it
+   (``build_parser``, ``build_server``) for ``--pool stream|unified`` x
+   ``--engine fast|fidelity`` at ``--engine-count 2 --pool-capacity 2``:
+   30 s tracks in A (rate 0.001, -5 st) and B (rate 0.5, +7 st), an audio
+   sink 0.25 s ahead, a FakeController turning a knob every 0.5 s and,
+   where ``websockets`` imports, a WebSocket client sending sets and one
+   ``analyze`` through ``ControlServer.run()``, for 6 s each: every set
+   must reach the pool, the master be finite and not silent, the reply
+   carry the JAX server's keys, no task restart, the engine's kernels
+   launched on the card; it prints the step times against the 30 ms hop,
+   the least lead of the render loop and the underruns.
 
 It prints one JSON line of per-kernel results, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA; without a card
@@ -1320,9 +1336,358 @@ def long_step_chains(mhz: float, results: dict) -> None:
         compare_kernels({k: ops[k] for k in want}, tag, results, mhz)
 
 
-def main() -> int:
+# 9. the server and the CLI: ``python -m bauklank_tpu_torch stretch`` and
+# ``serve`` as a user starts them
+STRETCH_ARGS = ["--rate", "0.5", "--semitones", "-12", "--max-seconds", "20"]
+STRETCH_TRACK_SEC = 30.0
+SERVE_SECONDS = 6.0
+SERVE_TURN_SEC = 0.5
+RENDER_AHEAD_SEC = 0.25   # ControlServer's default, as main builds it
+HOP_DEADLINE_MS = 30.0    # one hop (and one unified quantum) of audio
+FIRST_SEC = 1.0           # underruns of the first second counted apart
+# the keys of the JAX server's ``analysis`` reply (serve/server.py's
+# ``{"type": "analysis", **pool.analyze(slot)}``)
+ANALYSIS_KEYS = {"type", "slot", "scope", "spectrum", "spectrumHzPerBin", "levels"}
+# (key, value) turns of the fake controller, one every SERVE_TURN_SEC, the
+# channel alternating A, B; the WebSocket client's sets fall between them.
+# The last of either lands a second before the run ends, so every one has
+# reached the pool when it is read.
+TURNS = [("rate", 0.002), ("tone", -4), ("volume", 35), ("rate", 0.4), ("tone", 5),
+         ("volume", 60), ("rate", 0.001), ("tone", -6), ("volume", 45), ("rate", 0.6)]
+WS_SETS = [("B", "pan", 0.25), ("A", "pan", -0.5), ("B", "tone", 6), ("A", "volume", 40),
+           ("B", "rate", 0.45), ("A", "tone", -7)]
+# the (engine, key, value) of every set broadcast the run must see
+_SETS = set(WS_SETS) | {("AB"[i % 2], k, v) for i, (k, v) in enumerate(TURNS)}
+
+
+def _dominant_hz(x: np.ndarray, sr: float) -> float:
+    """The strongest spectral peak, refined by parabolic interpolation."""
+    x = np.asarray(x, np.float64)
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x))))
+    k = int(np.argmax(spec[1:-1])) + 1
+    a, b, c = np.log(spec[k - 1:k + 2] + 1e-30)
+    denom = a - 2 * b + c
+    return (k + (0.5 * (a - c) / denom if abs(denom) > 1e-12 else 0.0)) / len(x) * sr
+
+
+def cli_stretch(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """(a) ``stretch`` through the CLI: a 30 s stereo 44.1 kHz WAV (a 440 Hz
+    tone and low noise from ``seed``) stretched twice as long and an octave
+    down, in this process and as ``python3 -m bauklank_tpu_torch``; the two
+    files equal bit for bit, both >= 80 dB against ``stretch_offline``
+    called directly, the dominant frequency 220 Hz."""
+    import tempfile
+
     import torch
 
+    from bauklank_tpu_torch import cli, kernels
+    from bauklank_tpu_torch.engine import StretchConfig, StretchParams, stretch_offline
+    from bauklank_tpu_torch.runtime import native_available
+    from bauklank_tpu_torch.utils.audio import load_audio, save_audio
+
+    sr = int(SR)
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(STRETCH_TRACK_SEC * sr)) / sr
+    planes = np.stack([0.5 * np.sin(2 * np.pi * 440.0 * t + ph) + 0.01 * rng.standard_normal(t.size)
+                       for ph in (0.0, 0.3)]).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out_in, out_sub = (os.path.join(tmp, n) for n in ("in.wav", "cli.wav", "sub.wav"))
+        save_audio(src, planes, sr)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(["stretch", src, out_in, *STRETCH_ARGS, "--device", device]) != 0:
+            raise AssertionError("cli stretch returned non-zero")
+        wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        _check_path("cli stretch", "fast", counts, device == "cuda")
+        for k in launches:
+            launches[k] += counts[k]
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "bauklank_tpu_torch", "stretch", src, out_sub,
+                        *STRETCH_ARGS, "--device", device], cwd=ROOT, check=True, timeout=600)
+        wall_sub = time.perf_counter() - t0
+        same = open(out_in, "rb").read() == open(out_sub, "rb").read()
+        got, sr_out = load_audio(out_in)
+        sub, _ = load_audio(out_sub)
+        x, _ = load_audio(src)
+    if not same:
+        raise AssertionError(f"the subprocess's file differs from the in-process one "
+                             f"({_snr(torch.from_numpy(got), torch.from_numpy(sub)):.2f} dB)")
+    block = round(0.12 * sr)
+    cfg = StretchConfig(channels=2, block=block, interval=round(block / 4.0),
+                        split_computation=True, formants=False)
+    params = StretchParams.make(rate=0.5, semitones=-12.0, sample_rate=sr, device=device)
+    ref = stretch_offline(x, 0.5, cfg, params=params, n_out=20 * sr, device=device)
+    snr = _snr(torch.from_numpy(ref), torch.from_numpy(got))
+    hz = _dominant_hz(got[0, 5 * sr:5 * sr + 32768], sr)
+    secs = got.shape[1] / sr
+    log(f"[cli] stretch {STRETCH_TRACK_SEC:.0f} s stereo -> {secs:.1f} s {' '.join(STRETCH_ARGS)}: "
+        f"in-process {wall:.2f} s wall ({secs / wall:.1f} s of audio a second), subprocess "
+        f"{wall_sub:.2f} s wall; the two files equal bit for bit; {snr:.2f} dB against "
+        f"stretch_offline on {device}; dominant {hz:.2f} Hz; native WAV codec "
+        f"{'built' if native_available() else 'NOT built (stdlib wave)'}; launches {counts} "
+        f"| {card}")
+    if sr_out != sr or got.shape != (2, 20 * sr) or not np.isfinite(got).all():
+        raise AssertionError(f"cli stretch wrote {got.shape} at {sr_out} Hz")
+    if not snr >= 80.0:
+        raise AssertionError(f"cli stretch {snr:.2f} dB < 80 dB against stretch_offline")
+    if abs(hz - 220.0) > 0.02 * 220.0:
+        raise AssertionError(f"cli stretch dominant frequency {hz:.2f} Hz, not 220 Hz")
+
+
+def _pct(a, q: float) -> float:
+    """The q-th percentile of ``a``; nan when ``a`` is empty."""
+    return float(np.percentile(a, q)) if len(a) else float("nan")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _controls(pool, slot: str) -> dict:
+    """A voice's rate, tone, volume (percent) and pan, in either pool kind."""
+    v = pool.voices[slot] if hasattr(pool, "voices") else pool.slots[pool._by_name[slot]]
+    seg = v.timemap.segments[-1]
+    return {"rate": seg.rate, "tone": seg.semitones, "volume": v.volume * 100.0, "pan": v.pan}
+
+
+@contextlib.contextmanager
+def _restarts():
+    """The supervisor's restart lines (``task ... crashed``) logged while
+    the block runs."""
+    import logging
+
+    lines: list = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if "crashed" in record.getMessage():
+                lines.append(record.getMessage())
+
+    handler, logger = Handler(), logging.getLogger("bauklank.serve")
+    logger.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(handler)
+
+
+async def _drive_server(server, fc, use_ws: bool, port: int, rec: dict) -> None:
+    """Run the server for SERVE_SECONDS: the controller turns a knob every
+    SERVE_TURN_SEC; with ``use_ws`` a WebSocket client sends its sets
+    between turns, one ``analyze``, and reads the broadcasts."""
+    import asyncio
+
+    rec["t0"] = time.monotonic()
+    if use_ws:
+        main_task = asyncio.create_task(server.run())
+    else:
+        main_task = asyncio.gather(
+            server._supervise(server.serial_manager_task, "serial"),
+            server._supervise(server.heartbeat_task, "heartbeat"),
+            server._supervise(server.render_loop_task, "render-loop"),
+            server._supervise(server.time_status_task, "time-status"))
+
+    async def controller():
+        for i, (key, value) in enumerate(TURNS):
+            await asyncio.sleep(SERVE_TURN_SEC)
+            ch = "AB"[i % 2]
+            rec["turn_at"][(ch, key, value)] = time.monotonic()
+            fc.turn(ch, key, value)
+            rec["last"][(ch, key)] = value
+
+    async def client():
+        import websockets
+
+        await asyncio.sleep(0.1)
+        async with websockets.connect(f"ws://127.0.0.1:{port}") as ws:
+            pending = list(WS_SETS)
+            next_send = time.monotonic() + SERVE_TURN_SEC / 2
+            end, late_end = rec["t0"] + SERVE_SECONDS - 0.3, rec["t0"] + SERVE_SECONDS + 5.0
+            asked = False
+            # past ``end`` only while broadcasts are still due (a slow step
+            # holds the pool lock that each set waits for)
+            while time.monotonic() < end or (time.monotonic() < late_end and (
+                    rec["analysis"] is None or not _SETS <= set(rec["sets"]))):
+                now = time.monotonic()
+                if pending and now >= next_send:
+                    ch, key, value = pending.pop(0)
+                    rec["sent_at"][(ch, key, value)] = now
+                    await ws.send(json.dumps({"type": "set", "channel": ch, "key": key,
+                                              "value": value}))
+                    rec["last"][(ch, key)] = value
+                    next_send = now + SERVE_TURN_SEC
+                elif not asked and now - rec["t0"] > SERVE_SECONDS / 2:
+                    await ws.send(json.dumps({"type": "analyze", "slot": "B"}))
+                    asked = True
+                try:
+                    raw = await asyncio.wait_for(ws.recv(), 0.05)
+                except asyncio.TimeoutError:
+                    continue
+                m = json.loads(raw)
+                at = time.monotonic()
+                if m["type"] == "set":
+                    k = (m["engine"], m["key"], m["value"])
+                    start = rec["sent_at"].get(k, rec["turn_at"].get(k))
+                    rec["sets"].append(k)
+                    if start is not None:
+                        rec["set_ms"].append((at - start) * 1e3)
+                elif m["type"] == "time":
+                    rec["times"].setdefault(m["slot"], []).append(m["inputTime"])
+                elif m["type"] == "analysis":
+                    rec["analysis"] = m
+
+    helpers = [asyncio.create_task(controller())]
+    if use_ws:
+        helpers.append(asyncio.create_task(client()))
+    try:
+        await asyncio.sleep(SERVE_SECONDS)
+        for h in helpers:
+            await h  # raises what failed in the controller or the client
+    finally:
+        server.stop()
+        await asyncio.sleep(0.3)   # the loops see the stop and return
+        main_task.cancel()         # the heartbeat sleeps 60 s between lines
+        try:
+            await main_task
+        except asyncio.CancelledError:
+            pass
+
+
+def serve_setups(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """(b) The ControlServer as ``serve/server.py:main`` builds it
+    (``build_parser`` and ``build_server``), for ``--pool stream|unified``
+    x ``--engine fast|fidelity`` at ``--engine-count 2 --pool-capacity 2``:
+    30 s tracks in A (rate 0.001, -5 st, the kiosk's) and B (rate 0.5,
+    +7 st), an audio sink that records each master and its arrival, a
+    FakeController in channel mode, SERVE_SECONDS of wall clock.  The
+    tracks are two tones and low noise from ``seed``."""
+    import asyncio
+    import importlib.util
+
+    import torch
+
+    from bauklank_tpu_torch import kernels
+    from bauklank_tpu_torch.serve.serial import FakeController
+    from bauklank_tpu_torch.serve.server import build_parser, build_server
+
+    use_ws = importlib.util.find_spec("websockets") is not None
+    if not use_ws:
+        log("[server] websockets is not installed: the WebSocket round trip (WS sets, "
+            "analyze over WS, set and time broadcasts) is NOT run; the serial manager, render "
+            "loop, time push and heartbeat run under asyncio, analyze through the server's "
+            "locked call")
+    rng = np.random.default_rng(seed + 1)
+    t = np.arange(int(30 * SR)) / SR
+    track = np.stack([0.3 * np.sin(2 * np.pi * 220.0 * t), 0.3 * np.sin(2 * np.pi * 330.0 * t)])
+    track = (track + 0.01 * rng.standard_normal(track.shape)).astype(np.float32)
+    for pool_kind in ("stream", "unified"):
+        for engine in ("fast", "fidelity"):
+            port = _free_port()
+            args = build_parser().parse_args([
+                "--engine-count", "2", "--pool-capacity", "2", "--pool", pool_kind,
+                "--engine", engine, "--ws-host", "127.0.0.1", "--ws-port", str(port),
+                "--no-serial-scan", "--device", device])
+            arrivals: list = []
+            sink = lambda m: arrivals.append((time.monotonic(), np.array(m, copy=True)))
+            t_build = time.perf_counter()
+            server = build_server(args, audio_sink=sink, render_ahead_sec=RENDER_AHEAD_SEC)
+            pool = server.pool
+            for slot, (rate, st) in (("A", (0.001, -5.0)), ("B", (0.5, 7.0))):
+                pool.load_track(slot, [track[0], track[1]])
+                pool.start(slot, when=0.0, offset=0.0, rate=rate, semitones=st)
+            t_build = time.perf_counter() - t_build
+            fc = FakeController("controller-1")
+            server.add_transport(fc)
+            rec = {"turn_at": {}, "sent_at": {}, "last": {}, "sets": [], "set_ms": [],
+                   "times": {}, "analysis": None}
+            kernels.reset_launches()
+            with _restarts() as crashes:
+                asyncio.run(_drive_server(server, fc, use_ws, port, rec))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            for k in launches:
+                launches[k] += counts[k]
+            tag = f"--pool {pool_kind} --engine {engine}"
+            if pool.device.type != device:
+                raise AssertionError(f"{tag}: the pool is on {pool.device}")
+            _check_path(f"server {tag}", engine, counts, device == "cuda")
+            if crashes:
+                raise AssertionError(f"{tag}: the supervisor restarted a task: {crashes}")
+            if len(server.sessions) != 1:
+                raise AssertionError(f"{tag}: the controller did not attach")
+            # every turn and WS set reached the pool: the voice shows the last value
+            for (slot, key), value in rec["last"].items():
+                have = _controls(pool, slot)[key]
+                if not abs(float(have) - float(value)) < 1e-9:
+                    raise AssertionError(f"{tag}: {slot}.{key} is {have}, the last set was "
+                                         f"{value}")
+            masters = [m for _, m in arrivals]
+            master = np.concatenate(masters, axis=1)
+            if not (np.isfinite(master).all() and np.abs(master).max() > 0):
+                raise AssertionError(f"{tag}: the master is not finite or silent")
+            # the lead at each arrival, and the chunks that came after their
+            # audio should have started (t0 taken just before run(), a few ms
+            # before the render loop's own: both read a little low)
+            pos, leads, late = 0, {True: [], False: []}, {True: 0, False: 0}
+            for at, m in arrivals:
+                first = pos / SR < FIRST_SEC
+                late[first] += at - rec["t0"] > pos / SR
+                pos += m.shape[1]
+                leads[first].append(pos / SR - (at - rec["t0"]))
+            steps = np.asarray(pool.timer.durations) * 1e3
+            steady = steps[int(FIRST_SEC * SR / masters[0].shape[1]):]
+            if use_ws:
+                a = rec["analysis"]
+                # (a UnifiedPool's reply names the bucket's inner slot, as the
+                # JAX UnifiedPool's does: ROADMAP section 3)
+                if a is None or set(a) != ANALYSIS_KEYS:
+                    raise AssertionError(f"{tag}: analyze over WS gave {a}")
+                missing = _SETS - set(rec["sets"])
+                if missing:
+                    raise AssertionError(f"{tag}: no set broadcast for {sorted(missing)}")
+                if not all(rec["times"].get(s) for s in "AB"):
+                    raise AssertionError(f"{tag}: no time push for both voices: "
+                                         f"{ {s: len(v) for s, v in rec['times'].items()} }")
+                ws_note = (f"WS: {len(rec['sets'])} set broadcasts (set to broadcast p50 "
+                           f"{np.percentile(rec['set_ms'], 50):.1f} ms, max "
+                           f"{max(rec['set_ms']):.1f} ms), time pushes "
+                           f"{ {s: len(v) for s, v in rec['times'].items()} }, analyze of B keys ok "
+                           f"(slot {a['slot']!r})")
+            else:
+                a = server._locked_analyze("B")
+                if a is None or set({"type": "analysis", **a}) != ANALYSIS_KEYS:
+                    raise AssertionError(f"{tag}: analyze gave {a}")
+                ws_note = "WS round trip not run (no websockets)"
+            log(f"[server] {tag}: built in {t_build:.2f} s; {pool.timer.total_steps} steps "
+                f"in {SERVE_SECONDS:.0f} s, step p50 {np.percentile(steps, 50):.2f} ms p99 "
+                f"{np.percentile(steps, 99):.2f} ms max {steps.max():.2f} ms (after the first "
+                f"second: p50 {_pct(steady, 50):.2f} p99 {_pct(steady, 99):.2f}"
+                f" ms) against the {HOP_DEADLINE_MS:.0f} ms hop; {len(arrivals)} chunks, "
+                f"{master.shape[1] / SR:.2f} s of master; least lead "
+                f"{min(leads[True] + leads[False]) * 1e3:.1f} ms (after the first second "
+                f"{_pct(leads[False], 0) * 1e3:.1f} ms); underruns {late[True]} in the first "
+                f"second, {late[False]} after; "
+                f"{len(TURNS)} turns; {ws_note}; launches {counts} | {card}")
+            del server, pool
+            if device == "cuda":
+                torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="smoke run of bauklank_tpu_torch on one GPU")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 9's inputs (tones and noise)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
     sys.path.insert(0, ROOT)
@@ -1533,6 +1898,12 @@ def main() -> int:
     front_door_nodes("cuda", card, launches)
     long_step_chains(mhz, results)
     log(f"[front] phase 8 took {time.perf_counter() - t8:.1f} s")
+
+    # 9. the server and the CLI as a user starts them
+    t9 = time.perf_counter()
+    cli_stretch(opts.seed, card, launches)
+    serve_setups(opts.seed, card, launches)
+    log(f"[server] phase 9 took {time.perf_counter() - t9:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -63,6 +63,36 @@ def test_front_page_exports_what_the_jax_package_exports():
         assert getattr(bauklank_tpu_torch, name) is not None
 
 
+@pytest.mark.parametrize("sub", ["engine", "serve", "models", "runtime"])
+def test_subpackages_export_what_the_jax_subpackages_export(sub):
+    import importlib
+
+    jax_mod = importlib.import_module(f"bauklank_tpu.{sub}")
+    mod = importlib.import_module(f"bauklank_tpu_torch.{sub}")
+    assert list(mod.__all__) == list(jax_mod.__all__)
+    for name in mod.__all__:
+        assert getattr(mod, name) is not None
+
+
+def test_native_sources_are_package_data():
+    """Every file a native build reads (the ``.cu`` sources, the headers
+    they include, the runtime's C++) matches a package-data glob of
+    ``pyproject.toml``, so an installed copy can build its kernels."""
+    import tomllib
+
+    globs = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"][
+        "package-data"]["bauklank_tpu_torch"]
+    shipped = {p for g in globs for p in PKG.glob(g)}
+    native = {p for ext in ("*.cu", "*.cuh", "*.cpp", "*.c", "*.h", "*.hpp")
+              for p in PKG.rglob(ext) if "_build" not in p.parts}
+    assert native and native <= shipped, sorted(map(str, native - shipped))
+    for src in native:
+        for line in src.read_text().splitlines():
+            if line.lstrip().startswith("#include \""):
+                header = src.parent / line.split('"')[1]
+                assert header in shipped, f"{src.name} includes {header.name}, not shipped"
+
+
 def test_kernel_sources_and_flags():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert names == ["bandchain.cu", "chainfetch.cu", "compsum.cu", "frac_gather.cu",

@@ -1,0 +1,108 @@
+"""The port's server on the card.  Marked ``cuda``: each test skips unless
+a CUDA device and ``nvcc`` are present.
+
+A fidelity ``ControlServer``'s render loop steps its pool in worker
+threads (``asyncio.to_thread``); its masters must equal, bit for bit,
+those of a twin pool stepped directly in the test's thread.  ``analyze``
+runs in other worker threads while steps run: every analysis it returns
+must be that of a finished step (equal to the twin's analysis after one
+of its steps), and every worker thread must see the device's one default
+stream.  The proof at the serving size is ``chip_smoke.py`` phase 9.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import concurrent.futures
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from bauklank_tpu_torch import kernels
+from bauklank_tpu_torch.kernels import build
+from bauklank_tpu_torch.serve.pool import StreamPool
+from bauklank_tpu_torch.serve.server import ControlServer
+
+pytestmark = pytest.mark.cuda
+
+SR = 44100.0
+STEPS = 8
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    try:
+        build.find_nvcc()
+    except RuntimeError:
+        pytest.skip("no nvcc")
+    return torch.device("cuda")
+
+
+def _tone(freq: float, n: int) -> np.ndarray:
+    return np.sin(2 * np.pi * freq / SR * np.arange(n) + 0.3).astype(np.float32)
+
+
+def _pool(dev) -> StreamPool:
+    pool = StreamPool(capacity=2, names=["A", "B"], engine="fidelity", max_track_sec=4.0,
+                      device=dev)
+    x = _tone(440.0, int(3 * SR))
+    pool.load_track("A", [x, x])
+    pool.load_track("B", [np.roll(x, 977), x])
+    pool.start("A", when=0.0, offset=0.0, rate=0.001, semitones=-5)
+    pool.start("B", when=0.0, offset=0.0, rate=0.5, semitones=7)
+    return pool
+
+
+def test_render_loop_masters_equal_a_direct_pool(dev):
+    twin = _pool(dev)
+    direct = [twin.step(fetch=True)[0] for _ in range(STEPS)]
+    served, masters = _pool(dev), []
+
+    async def scenario():
+        srv = ControlServer(pool=served, engine_slots=["A", "B"], audio_sink=masters.append,
+                            render_ahead_sec=10.0, scan_hardware=False)
+        task = asyncio.create_task(srv.render_loop_task())
+        for _ in range(1500):
+            if len(masters) >= STEPS:
+                break
+            await asyncio.sleep(0.02)
+        srv.stop()
+        await asyncio.wait_for(task, 30)
+
+    kernels.reset_launches()
+    asyncio.run(scenario())
+    assert len(masters) >= STEPS
+    for want, got in zip(direct, masters):
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, want)
+    # the first hops are silent (the engine's output latency), not all of them
+    assert np.abs(np.concatenate(masters[:STEPS], axis=1)).max() > 0
+    for k in ("frames_windowed", "comp_cumsum", "frac_gather", "band_chain"):
+        assert kernels.LAUNCHES[k] > 0, k
+
+
+def test_concurrent_analyze_reads_a_finished_step(dev):
+    twin = _pool(dev)
+    finished = []
+    for _ in range(STEPS):
+        twin.step(fetch=True)
+        finished.append(json.dumps(twin.analyze("B"), sort_keys=True))
+    pool = _pool(dev)
+    srv = ControlServer(pool=pool, engine_slots=["A", "B"], scan_hardware=False)
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        streams = list(ex.map(lambda _: torch.cuda.current_stream(dev).cuda_stream, range(8)))
+        steps = [ex.submit(srv._locked_step) for _ in range(STEPS)]
+        reads = [ex.submit(srv._locked_analyze, "B") for _ in range(4 * STEPS)]
+        for f in steps:
+            f.result(timeout=120)
+        seen = [r.result(timeout=120) for r in reads]
+    assert set(streams) == {main_stream}
+    got = [json.dumps(a, sort_keys=True) for a in seen if a is not None]
+    assert got, "no analysis ran after a step"
+    for a in got:
+        assert a in finished
