@@ -31,7 +31,16 @@ the command line (:mod:`cli`, ``python -m bauklank_tpu_torch``, whose
 presets and topology (:mod:`models`); the host runtime (:mod:`runtime`:
 the C++ WAV codec built with ``g++``, the ring buffer, the mp3 decoder)
 and the audio I/O over it (:mod:`utils.audio`, resampling through
-:mod:`ops.resample`).
+:mod:`ops.resample`); the parallel paths (:mod:`parallel`: stream data
+parallelism and the hop-sharded offline render on ``torch.distributed``,
+one rank per card); and the per-hop forms the JAX suite pins the serving
+step against (:func:`engine.spectral.spectral_hop`,
+:func:`engine.spectral.spectral_hop_batched`,
+:func:`engine.fidelity.batched_fidelity_chunk_scan`, the one-stream
+``engine.fidelity._render_jit``).  Left out on purpose: the fused MDFT
+A/B (a TPU matrix-unit form, off by default in JAX) and the TPU forms of
+the fractional gather (``ops/blockgather.py``, ``ops/windowgather.py``),
+for which ``ops.gather`` stands.
 """
 
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_cheaper, preset_default

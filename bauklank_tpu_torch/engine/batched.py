@@ -16,7 +16,7 @@ from bauklank_tpu_torch.engine.core import StretchState, fresh_state, process_ch
 from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["init_batched_state", "batched_process_chunk", "formants_off"]
+__all__ = ["init_batched_state", "batched_process_chunk", "batched_step_jit", "formants_off"]
 
 
 def init_batched_state(config: StretchConfig, n_streams: int,
@@ -42,3 +42,13 @@ def formants_off(config: StretchConfig) -> StretchConfig:
     """The same engine shape with the formant chain left out (the state is
     the same, so states flow between the two step variants)."""
     return dataclasses.replace(config, formants=False)
+
+
+def batched_step_jit(config: StretchConfig, states: StretchState, audios, frame_ends,
+                     params: StretchParams):
+    """The serving step under the JAX package's name: the batched step
+    itself.  JAX compiles it and donates the states; PyTorch runs eagerly
+    and allocates the new states, so it needs no compile-and-donate
+    wrapper.  Do not reuse ``states`` after the call, as JAX's donation
+    forbids."""
+    return batched_process_chunk(config, states, audios, frame_ends, params)

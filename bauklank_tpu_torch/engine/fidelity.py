@@ -20,6 +20,13 @@ time by stage.
 The host side (:func:`hop_frame_ends`) replicates the worklet's float time
 accumulation bit-for-bit, as the JAX package does.
 
+The per-hop forms the JAX suite pins the serving step against are here
+too: :func:`batched_fidelity_chunk_scan` (every hop's chain inputs
+recomputed inside the hop loop, ``engine.spectral.spectral_hop_batched``),
+and the one-stream render :func:`_render_jit` over :func:`_scan_hops`,
+which JAX's ``render_fidelity`` runs; the port's :func:`render_fidelity`
+keeps the serving route.
+
 :func:`batched_live_fidelity_chunk` is the coupled (live-input) drive:
 the same step fed from a rolling input ring with constant frame ends.
 """
@@ -35,11 +42,14 @@ from torch.profiler import record_function
 from bauklank_tpu_torch.engine.spectral import (
     SpectralConfig,
     SpectralState,
-    _rotation,
+    _div_real,
+    _hop_chain,
     band_chain_packed,
     blob_window,
     chain_inputs_hops,
     init_spectral_state,
+    spectral_hop,
+    spectral_hop_batched,
 )
 from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.ops import framing, mdft
@@ -55,6 +65,7 @@ __all__ = [
     "init_fidelity_state",
     "init_batched_fidelity_state",
     "batched_fidelity_chunk",
+    "batched_fidelity_chunk_scan",
     "fidelity_chunk",
     "live_fidelity_ring_len",
     "init_batched_live_fidelity_state",
@@ -186,13 +197,6 @@ def _ola_emit(cfg: SpectralConfig, frames, tails, active, h: int):
     return emit, ola[..., h * interval:]
 
 
-def _div_real(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
-    """``num / (den + 0i)`` as ``re / den`` and ``im / den``: XLA's complex
-    division by a real-valued complex64, value for value, which PyTorch's
-    own complex division is not (pinned by tests/test_torch_fidelity.py)."""
-    return torch.complex(num.real / den, num.imag / den)
-
-
 def init_fidelity_state(cfg: SpectralConfig, device, seed: int = 1):
     """(SpectralState, ola_tail [C, block + interval]) for one stream."""
     return (
@@ -214,23 +218,10 @@ def _hop_loop(cfg: SpectralConfig, prev_out: torch.Tensor, xs: dict) -> torch.Te
     spectrum, forms the time prediction and ``u12``, and runs the band
     chain (kernel 4).  prev_out [S, C, B]; ``xs`` from
     :func:`chain_inputs_hops`.  Returns every hop's output [S, H, C, B]."""
-    rot = _rotation(cfg, prev_out.device)
-    long_step = cfg.long_step
     outs = []
     for i in range(xs["tw"].shape[0]):
-        # mdft.cmul: the carried spectrum comes out of the band chain with
-        # the streams minor, and PyTorch's CPU complex product rounds a
-        # stride-1 stream axis by its length (scalar or vector loop), so the
-        # plain product would tie a voice's bits to the pool's width
-        rotated = mdft.cmul(mdft.cmul(prev_out, rot), xs["tw"][i])
-        timepred = _div_real(rotated, xs["den"][i])                         # [S, C, B]
-        tp1 = torch.cat([timepred[..., 1:], torch.zeros_like(timepred[..., :1])], dim=-1)
-        tpl = torch.cat([timepred[..., long_step:],
-                         torch.zeros_like(timepred[..., :long_step])], dim=-1)
-        u12 = torch.sum(tp1 * xs["k1"][i], dim=1) + torch.sum(tpl * xs["k2"][i], dim=1)
-        chain = (xs["d1"][i], xs["d2"][i], u12, xs["pe_mc"][i], xs["pi_mc"][i],
-                 xs["mc"][i], xs["lock"][i], xs["pred_energy"][i], xs["pred_input"][i])
-        prev_out = band_chain_packed(cfg, chain)
+        x = {k: v[i] for k, v in xs.items()}
+        prev_out = band_chain_packed(cfg, _hop_chain(cfg, prev_out, x, x["den"]))
         outs.append(prev_out)
     return torch.stack(outs, dim=1)
 
@@ -251,8 +242,7 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
     factor <= 2 (``engine.spectral._hop_inputs_hoisted``).  Returns
     ((new_spec_state, new_tails), emit [S, C, H * interval]).  Inactive
     streams keep their state frozen and emit silence."""
-    spec_states, tails = states
-    h = ends.shape[1]
+    spec_states, _ = states
     with record_function("fidelity.analyse"):
         cur, prev = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
     with record_function("fidelity.chain_inputs"):
@@ -269,9 +259,18 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
         f_value_ema=fv,
         f_weighted_ema=fw,
     )
+    return _finish(cfg, outs, new_spec, states, active)
+
+
+def _finish(cfg: SpectralConfig, outs, new_spec: SpectralState, states, active):
+    """Synthesis and overlap-add of every hop's output ``outs`` [S, H, C,
+    B], then the carried state: ``new_spec`` and the new tails where a
+    stream is active, ``states`` (the step's input) frozen where not.
+    Returns ((spec_state, tails), emit [S, C, H * interval])."""
+    spec_states, tails = states
     with record_function("fidelity.synthesis"):
         frames = synthesise_frames(cfg, outs)                       # [S, C, H, block]
-        emit, new_tails = _ola_emit(cfg, frames, tails, active, h)
+        emit, new_tails = _ola_emit(cfg, frames, tails, active, outs.shape[1])
 
     keep = active > 0
 
@@ -280,6 +279,67 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
 
     new_spec = SpectralState(*[freeze(a, b) for a, b in zip(new_spec, spec_states)])
     return (new_spec, freeze(new_tails, tails)), emit
+
+
+def batched_fidelity_chunk_scan(cfg: SpectralConfig, states, audios, ends, tf, mult, limit,
+                                active, formant_factor=None, formant_compensation=None,
+                                formant_base=None):
+    """The hop-scan form of :func:`batched_fidelity_chunk`: the same
+    analyses and synthesis, but each hop's chain inputs recomputed inside
+    the hop loop (``engine.spectral.spectral_hop_batched``: the peaks map,
+    the gathers and the formant chain once a hop, the band chain as
+    kernel 4 on the card).  The JAX package keeps it as the cross-check
+    oracle of the serving form; the tests hold the two to its bars.  Same
+    arguments and results as :func:`batched_fidelity_chunk` (no coupled
+    drive, no regime word)."""
+    spec_states, _ = states
+    cur, prev = _analyse_cur_prev(cfg, audios, ends)
+    st, outs = spec_states, []
+    for i in range(ends.shape[1]):
+        st, out = spectral_hop_batched(cfg, st, cur[i], prev[i], tf, mult, limit,
+                                       formant_factor, formant_compensation, formant_base)
+        outs.append(out)
+    return _finish(cfg, torch.stack(outs, dim=1), st, states, active)
+
+
+def _scan_hops(cfg: SpectralConfig, state: SpectralState, cur, prev, time_factor, mult, limit,
+               formant_factor=None, formant_compensation=None, formant_base=None):
+    """:func:`engine.spectral.spectral_hop` over the hops of one stream:
+    state without a stream axis, cur and prev [H, C, B], scalar controls.
+    Returns (state, outs [H, C, B]).  A plain loop with complex operands
+    (the JAX form carries them as float pairs through ``lax.scan``, which
+    the TPU needs)."""
+    outs = []
+    for i in range(cur.shape[0]):
+        state, out = spectral_hop(cfg, state, cur[i], prev[i], time_factor, mult, limit,
+                                  formant_factor, formant_compensation, formant_base)
+        outs.append(out)
+    return state, torch.stack(outs)
+
+
+def _render_jit(cfg: SpectralConfig, audio, frame_ends, n_out: int, time_factor, mult, limit,
+                state: SpectralState, formants: tuple | None = None, split: bool = True):
+    """One stream rendered hop by hop, JAX's ``render_fidelity`` body:
+    analyses of every hop (split on: the cur and prev frames in one pass;
+    split off: the prev windows with their first interval zeroed), then
+    :func:`_scan_hops`, synthesis and one overlap-add, frames placed at
+    ``(h + 1) * interval`` with split on and ``h * interval`` with split
+    off.  audio [C, T]; frame_ends [H]; ``formants`` (factor,
+    compensation, base) or None.  Returns (state, out [C, n_out]).  The
+    name is JAX's; PyTorch runs it eagerly, with nothing to compile."""
+    h = frame_ends.shape[0]
+    if split:
+        specs = analyse_frames(cfg, audio, torch.cat([frame_ends, frame_ends - cfg.interval]))
+        cur, prev = specs[:h], specs[h:]
+    else:
+        cur = analyse_frames(cfg, audio, frame_ends)
+        prev = analyse_frames(cfg, audio, frame_ends - cfg.interval, zero_head=cfg.interval)
+    state, outs = _scan_hops(cfg, state, cur, prev, time_factor, mult, limit,
+                             *(formants or ()))
+    ola = framing.overlap_add(synthesise_frames(cfg, outs), cfg.interval, n_out)
+    if split:
+        ola = torch.nn.functional.pad(ola, (cfg.interval, 0))
+    return state, ola[:, :n_out]
 
 
 def fidelity_chunk(cfg: SpectralConfig, state, audio, frame_ends, time_factor, mult, limit,
@@ -407,6 +467,7 @@ def render_fidelity(
     tonality_hz: float = 8000.0,
     block_ms: float = 120.0,
     interval_ms: float = 30.0,
+    state=None,
     seed: int = 1,
     formant_semitones: float = 0.0,
     formant_compensation: bool = False,
@@ -419,9 +480,13 @@ def render_fidelity(
     stream runs through :func:`batched_fidelity_chunk` chunk by chunk
     with carried state (the hop count padded to whole chunks).  Same
     arguments and semantics as the reference harness'
-    ``native.render_reference``.  It runs on ``device``, the card unless
-    the caller passes another.  audio [C, T] float32 -> [C, n_out]
-    float32."""
+    ``native.render_reference``.  ``state``: the stream's state to start
+    from instead of a fresh one seeded with ``seed``: a
+    :class:`SpectralState` without a stream axis, as JAX's
+    ``render_fidelity`` takes it (the overlap-add starts empty), or the
+    pair (SpectralState, ola_tail) that :func:`fidelity_chunk` carries.
+    It runs on ``device``, the card unless the caller passes another.
+    audio [C, T] float32 -> [C, n_out] float32."""
     device = resolve_device(device)
     sr = float(sample_rate)
     use_formants = formant_semitones != 0.0 or bool(formant_compensation)
@@ -439,7 +504,11 @@ def render_fidelity(
     if use_formants:
         controls += [one(float(np.exp2(formant_semitones / 12.0))),
                      one(1.0 if formant_compensation else 0.0), one(formant_base_hz / sr)]
-    state = init_batched_fidelity_state(cfg, 1, device, seed)
+    if state is None:
+        state = init_fidelity_state(cfg, device, seed)
+    elif isinstance(state, SpectralState):
+        state = (state, init_fidelity_state(cfg, device)[1])
+    state = tree_map(lambda x: torch.as_tensor(x).to(device)[None], state)
     audios = torch.from_numpy(np.asarray(audio, np.float32))[None].to(device)
     emitted = []
     for c in range(n_hops // hops_per_chunk):

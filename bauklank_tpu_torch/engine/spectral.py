@@ -40,9 +40,11 @@ import torch
 
 from bauklank_tpu_torch.kernels.bandchain import band_chain
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
+from bauklank_tpu_torch.ops import mdft
 from bauklank_tpu_torch.ops.gather import chainfetch, frac_gather
 from bauklank_tpu_torch.ops.mdft import unit_phase
 from bauklank_tpu_torch.ops.scan import associative_scan
+from bauklank_tpu_torch.utils.tree import tree_map
 
 __all__ = [
     "EPS",
@@ -51,6 +53,8 @@ __all__ = [
     "fft_size_for",
     "blob_window",
     "init_spectral_state",
+    "spectral_hop",
+    "spectral_hop_batched",
     "chain_inputs_hops",
     "band_chain_packed",
 ]
@@ -424,6 +428,35 @@ def _formant_gain_from_width(cfg: SpectralConfig, env_e, width, active, mult, li
     return torch.where(active[:, None], torch.square(ratio), 1.0)
 
 
+def _formant_f0(env_energy: torch.Tensor, value_ema, weighted_ema, update):
+    """The auto-f0 smoothing width of one hop (formantBase == 0) for N
+    rows: the top-3 peak tracker with its two harmonic folds
+    (:func:`_formant_peak`), then one step of the 1/16 EMAs
+    (:func:`_formant_ema`), which advance only where ``update`` (the blob
+    skips step 5 for formant-neutral hops).  env_energy [N, B], the rest
+    [N].  Returns (width, new_value_ema, new_weighted_ema)."""
+    pv, i5 = _formant_peak(env_energy)
+    return _formant_ema(pv, i5, value_ema, weighted_ema, update)
+
+
+def _formant_gain(cfg: SpectralConfig, energy_c: torch.Tensor, state: SpectralState,
+                  mult, limit, formant_factor, formant_compensation, formant_base):
+    """The blob's step 5 for one hop of S streams: energy_c [S, C, B]
+    (the channel energies before the gain), state and controls [S].
+    Returns (gain [S, B], new_value_ema, new_weighted_ema); a
+    formant-neutral voice gets the exact identity gain and frozen
+    trackers (the blob's gate)."""
+    active = (formant_factor != 1.0) | ((formant_compensation != 0.0) & (mult != 1.0))
+    env_e = torch.sum(energy_c, dim=1)                                # [S, B]
+    auto = formant_base <= 0.0
+    w_auto, new_v, new_w = _formant_f0(env_e, state.f_value_ema, state.f_weighted_ema,
+                                       active & auto)
+    width = torch.where(auto, w_auto, formant_base * cfg.fft - 0.5)
+    gain = _formant_gain_from_width(cfg, env_e[None], width[None], active, mult, limit,
+                                    formant_factor, formant_compensation)
+    return gain[0], new_v, new_w
+
+
 # ------------------------------------------------------ hop-local stage
 def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
     """a[..., k:] followed by k zeros."""
@@ -578,6 +611,26 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
     return _hop_post_gather(cfg, five, pe_raw, prev_interp, grad)
 
 
+def _hop_local_inputs(cfg: SpectralConfig, spec_in, spec_prev, seed, time_factor, mult, limit,
+                      fgain=None):
+    """The hop-local part of :func:`_chain_inputs` for one hop of S
+    streams: everything that does not depend on the carried spectra.
+    spec_in, spec_prev [S, C, B]; seed, time_factor, mult, limit [S];
+    fgain [S, B] or None.  Returns the operands of
+    :func:`_hop_inputs_hoisted` without the hop axis.
+
+    In the JAX package the hoisted serving form and this per-hop form
+    differ in their gathers (one-hot block matmuls against row gathers).
+    In the port both run the same stages, so one hop is the hoisted form
+    at H = 1 on the two-launch gather route (kernel 3 twice), with the
+    MINSTD draws computed in every regime; the tests hold H hops at once
+    equal, bit for bit, to H single hops."""
+    xs = _hop_inputs_hoisted(cfg, spec_in[None], spec_prev[None], seed[None], time_factor,
+                             mult, limit, None if fgain is None else fgain[None],
+                             deterministic=False)
+    return {k: v[0] for k, v in xs.items()}
+
+
 def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
                       time_factor, mult, limit,
                       formant_factor=None, formant_compensation=None, formant_base=None,
@@ -631,6 +684,81 @@ def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
     return xs, (rng_final, fv, fw)
 
 
+def _div_real(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """``num / (den + 0i)`` as ``re / den`` and ``im / den``: XLA's complex
+    division by a real-valued complex64, value for value, which PyTorch's
+    own complex division is not (pinned by tests/test_torch_fidelity.py)."""
+    return torch.complex(num.real / den, num.imag / den)
+
+
+def _hop_chain(cfg: SpectralConfig, prev_out: torch.Tensor, x: dict, den: torch.Tensor):
+    """The state-coupled rest of one hop: rotate the carried spectrum
+    ``prev_out`` [S, C, B] one interval forward, form the time prediction
+    and ``u12``, and return the band chain's operands.  ``x``: one hop's
+    hop-local operands ([S, ...]); ``den`` [S, C, B] its stale-prediction
+    denominators."""
+    # mdft.cmul: the carried spectrum comes out of the band chain with the
+    # streams minor, and PyTorch's CPU complex product rounds a stride-1
+    # stream axis by its length (scalar or vector loop), so the plain
+    # product would tie a voice's bits to the pool's width
+    rotated = mdft.cmul(mdft.cmul(prev_out, _rotation(cfg, prev_out.device)), x["tw"])
+    timepred = _div_real(rotated, den)                                  # [S, C, B]
+    u12 = (torch.sum(_shift(timepred, 1) * x["k1"], dim=1)
+           + torch.sum(_shift(timepred, cfg.long_step) * x["k2"], dim=1))
+    return (x["d1"], x["d2"], u12, x["pe_mc"], x["pi_mc"], x["mc"], x["lock"],
+            x["pred_energy"], x["pred_input"])
+
+
+def _chain_inputs(cfg: SpectralConfig, state: SpectralState, spec_in, spec_prev,
+                  time_factor, mult, limit,
+                  formant_factor=None, formant_compensation=None, formant_base=None):
+    """Steps 3-6 and the step-7 gathers of one hop of S streams:
+    everything before the sequential band chain, recomputed from this
+    hop's analyses and the carried state (the JAX package's hop-exact
+    path).  state [S]; spec_in, spec_prev [S, C, B]; controls [S].
+    Returns ``(chain, (new_rng, new_fv, new_fw, pred_energy))`` with
+    chain = (d1, d2, u12, pe_mc, pi_mc, mc, lock, pred_energy, pred_input),
+    the operands of :func:`_band_chain_scan` and :func:`band_chain_packed`.
+
+    The formant trackers take one EMA step and the MINSTD seed advances by
+    one hop's draws where the stream is at time factor > 2.  ``u12`` folds
+    the leader's one-hot into its factors as the hoisted form does, which
+    gives the JAX form's selection of the products bit for bit (one
+    nonzero term)."""
+    fgain = None
+    fv, fw = state.f_value_ema, state.f_weighted_ema
+    if cfg.formants and formant_factor is not None:
+        fgain, fv, fw = _formant_gain(cfg, torch.square(torch.abs(spec_in)), state, mult, limit,
+                                      formant_factor, formant_compensation, formant_base)
+    x = _hop_local_inputs(cfg, spec_in, spec_prev, state.rng, time_factor, mult, limit, fgain)
+    _, hop_pows = _minstd_tables(2 * cfg.bands - 2, 1, spec_in.device)
+    new_rng = torch.where(time_factor > 2.0, _modmul31(state.rng, hop_pows[1]), state.rng)
+    den = torch.maximum(x["pred_energy"], state.prev_pred_energy) + EPS
+    chain = _hop_chain(cfg, state.prev_output, x, den)
+    return chain, (new_rng, fv, fw, x["pred_energy"])
+
+
+def spectral_hop(cfg: SpectralConfig, state: SpectralState, spec_in, spec_prev, time_factor,
+                 mult, limit, formant_factor=None, formant_compensation=None,
+                 formant_base=None):
+    """One hop of the blob's processSpectrum for one stream: state without
+    a stream axis, spec_in and spec_prev [C, B] (the analyses at the frame
+    and one interval back), scalar controls.  Returns (state, out [C, B]).
+    The band chain is the plain sequence (:func:`_band_chain_scan`), as in
+    the JAX package; formant processing runs where ``cfg.formants`` and the
+    formant controls are given."""
+    dev = spec_in.device
+    one = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
+    formants = [None if v is None else one(v)
+                for v in (formant_factor, formant_compensation, formant_base)]
+    chain, (rng, fv, fw, pe) = _chain_inputs(
+        cfg, tree_map(lambda v: v[None], state), spec_in[None], spec_prev[None],
+        one(time_factor), one(mult), one(limit), *formants)
+    out = _band_chain_scan(cfg, chain)[0]
+    return SpectralState(prev_output=out, prev_pred_energy=pe[0], rng=rng[0],
+                         f_value_ema=fv[0], f_weighted_ema=fw[0]), out
+
+
 # ------------------------------------------------------------ band chain
 def band_chain_packed(cfg: SpectralConfig, chain) -> torch.Tensor:
     """Pack batched chain inputs into the band-chain layout ([planes, B, S],
@@ -659,3 +787,80 @@ def band_chain_packed(cfg: SpectralConfig, chain) -> torch.Tensor:
     ])                                                            # [C, 6, B, S]
     out = band_chain(lead.contiguous(), chan.contiguous(), cfg.long_step)
     return torch.complex(out[:, 0], out[:, 1]).permute(2, 0, 1)   # [S, C, B]
+
+
+def _cmul_parts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b with each real product and sum rounded on its own: the band
+    chain's operation order (``kernels/bandchain.py:band_chain_ref``)."""
+    return torch.complex(a.real * b.real - a.imag * b.imag, a.real * b.imag + a.imag * b.real)
+
+
+def _abs2(z: torch.Tensor) -> torch.Tensor:
+    return z.real * z.real + z.imag * z.imag
+
+
+def _scaled(s: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return torch.complex(s * z.real, s * z.imag)
+
+
+def _band_chain_scan(cfg: SpectralConfig, chain) -> torch.Tensor:
+    """The sequential Gauss-Seidel chain over bands, written out on
+    complex tensors: band b's leader phase sums ``u12`` and the leader's
+    outputs at bands b-1 and b-long_step through ``d1`` and ``d2``, scaled
+    to the leader's predicted energy; the other channels lock to the
+    leader's phase through ``lock``; a phase sum at or under ``EPS`` falls
+    back to the predicted input.  ``chain`` as :func:`band_chain_packed`
+    takes it ([S, ...] operands).  Returns [S, C, B] complex64, bit for
+    bit what the band chain's plain version gives (every product and sum
+    rounded on its own, in its order)."""
+    d1, d2, u12, pe_mc, pi_mc, mc, lock, pred_energy, pred_input = chain
+    s_n, c_n, b_n = pred_input.shape
+    long_step = cfg.long_step
+    onehot = (mc[:, None, :] == torch.arange(c_n, device=mc.device)[None, :, None])
+    lead_f = onehot.to(torch.float32)                                  # [S, C, B]
+    outs = []
+
+    def leader(out_b, b):  # the leader channel of band b's output: one nonzero term
+        return torch.complex((out_b.real * lead_f[..., b]).sum(1),
+                             (out_b.imag * lead_f[..., b]).sum(1))
+
+    for b in range(b_n):
+        ph = u12[:, b]
+        if b >= 1:
+            ph = ph + _cmul_parts(leader(outs[b - 1], b), d1[:, b])
+        if b >= long_step:
+            ph = ph + _cmul_parts(leader(outs[b - long_step], b), d2[:, b])
+        p2 = _abs2(ph)
+        tiny = p2 <= EPS
+        ph = torch.where(tiny, pi_mc[:, b], ph)
+        p2 = torch.where(tiny, _abs2(pi_mc[:, b]) + EPS, p2)
+        out_mc = _scaled(torch.sqrt(pe_mc[:, b] / p2), ph)              # [S]
+        # the other channels lock to the leader's phase
+        ph_c = _cmul_parts(out_mc[:, None], lock[..., b])               # [S, C]
+        p2_c = _abs2(ph_c)
+        tiny_c = p2_c <= EPS
+        ph_c = torch.where(tiny_c, pred_input[..., b], ph_c)
+        p2_c = torch.where(tiny_c, _abs2(pred_input[..., b]) + EPS, p2_c)
+        out_c = _scaled(torch.sqrt(pred_energy[..., b] / p2_c), ph_c)
+        outs.append(torch.where(onehot[..., b], out_mc[:, None], out_c))
+    return torch.stack(outs, dim=-1)
+
+
+def spectral_hop_batched(cfg: SpectralConfig, state: SpectralState, spec_in, spec_prev,
+                         time_factor, mult, limit, formant_factor=None,
+                         formant_compensation=None, formant_base=None,
+                         use_kernel: bool | None = None):
+    """One hop for a whole pool: :func:`_chain_inputs` over the S streams,
+    then the band chain as kernel 4 (``use_kernel``, through
+    :func:`band_chain_packed`) or as :func:`_band_chain_scan`.
+    ``use_kernel=None`` takes the kernel on the card and the plain chain
+    on the CPU.  state [S]; spec_in, spec_prev [S, C, B]; controls [S].
+    Returns (state, out [S, C, B])."""
+    chain, (rng, fv, fw, pe) = _chain_inputs(
+        cfg, state, spec_in, spec_prev, time_factor, mult, limit,
+        formant_factor, formant_compensation, formant_base)
+    if use_kernel is None:
+        use_kernel = spec_in.device.type == "cuda"
+    out = band_chain_packed(cfg, chain) if use_kernel else _band_chain_scan(cfg, chain)
+    return SpectralState(prev_output=out, prev_pred_energy=pe, rng=rng,
+                         f_value_ema=fv, f_weighted_ema=fw), out

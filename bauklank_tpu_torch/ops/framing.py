@@ -1,15 +1,15 @@
 """Frame gather and overlap-add — the time<->frame boundary ops.
 
 Port of ``bauklank_tpu/ops/framing.py`` (``gather_frames``,
-``overlap_add``), with the same zero-padding and masking law, so both
-functions are bit-identical to the JAX ones.
+``overlap_add``, ``ola_chunks``), with the same zero-padding and masking
+law, so the functions are bit-identical to the JAX ones.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather_frames", "overlap_add"]
+__all__ = ["gather_frames", "overlap_add", "ola_chunks"]
 
 
 def gather_frames(signal: torch.Tensor, starts: torch.Tensor, block: int) -> torch.Tensor:
@@ -46,3 +46,15 @@ def overlap_add(frames: torch.Tensor, interval: int, out_len: int) -> torch.Tens
     if out.shape[-1] < out_len:
         out = torch.nn.functional.pad(out, (0, out_len - out.shape[-1]))
     return out[..., :out_len]
+
+
+def ola_chunks(frames: torch.Tensor, interval: int) -> torch.Tensor:
+    """Streaming overlap-add helper: one hop's windowed frame [..., B] ->
+    [..., K, interval], K = ceil(B / interval), zero-padded; row k is the
+    frame's contribution to the k-th interval-sized chunk ahead."""
+    b = frames.shape[-1]
+    k = -(-b // interval)
+    pad = k * interval - b
+    if pad:
+        frames = torch.nn.functional.pad(frames, (0, pad))
+    return frames.reshape(frames.shape[:-1] + (k, interval))

@@ -1,6 +1,9 @@
 """Modified real DFT: bands centered at (k + 1/2) bins.
 
-Port of ``bauklank_tpu/ops/mdft.py`` (``mdft``/``imdft``) on ``torch.fft``.
+Port of ``bauklank_tpu/ops/mdft.py`` (``mdft``/``imdft``, ``num_bands``,
+``band_freqs``) on ``torch.fft``.  The JAX module's fused forms
+(``mdft_fused``/``imdft_fused``, a TPU matrix-unit A/B that is off by
+default there) are not ported.
 
 Forward:  X[k] = sum_n x[n] * exp(-2i*pi*(k+1/2)*n/N),  k in [0, N/2)
 Inverse:  x[n] = (2/N) * Re( sum_k X[k] * exp(+2i*pi*(k+1/2)*n/N) )
@@ -21,7 +24,16 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["mdft", "imdft", "cmul", "cabs", "unit_phase"]
+__all__ = ["mdft", "imdft", "num_bands", "band_freqs", "cmul", "cabs", "unit_phase"]
+
+
+def num_bands(block: int) -> int:
+    return block // 2
+
+
+def band_freqs(block: int) -> np.ndarray:
+    """Band centre frequencies in cycles/sample (numpy, on the host)."""
+    return ((np.arange(block // 2) + 0.5) / block).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=1)

@@ -55,6 +55,7 @@ from bauklank_tpu_torch.utils.tree import tree_map
 __all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS"]
 
 SCHEDULE_LOOKAHEAD_SEC = 0.1  # reference: app/multi/app.mjs:494
+RAMP_SEC = 0.03               # reference: app/multi/app.mjs:454
 
 CONTROL_CLAMPS = {
     "rate": (1e-5, 2.0),          # app/multi/app.mjs:483

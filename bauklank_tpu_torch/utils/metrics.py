@@ -1,17 +1,19 @@
 """Observability: step timing, real-time factor, rate meters.
 
-Copied from ``bauklank_tpu/utils/metrics.py`` without its JAX profiler
-hook (``profile_trace``); on the GPU use ``torch.profiler`` directly.
+Copied from ``bauklank_tpu/utils/metrics.py``; ``profile_trace`` runs
+``torch.profiler`` where the JAX module runs ``jax.profiler``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 
 import numpy as np
+import torch
 
-__all__ = ["StepTimer", "RateMeter"]
+__all__ = ["StepTimer", "RateMeter", "profile_trace"]
 
 
 class StepTimer:
@@ -92,3 +94,18 @@ class RateMeter:
     def _trim(self, now: float) -> None:
         while self.stamps and now - self.stamps[0] > self.window:
             self.stamps.popleft()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """``torch.profiler`` trace around a region, written under ``log_dir``
+    by the TensorBoard trace handler (``*.pt.trace.json``, also readable in
+    Perfetto): the host's ops and, where a CUDA device is visible, the
+    card's kernels."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield

@@ -85,7 +85,24 @@ Phases (any failure raises and exits non-zero without the result line):
    must reach the pool, the master be finite and not silent, the reply
    carry the JAX server's keys, no task restart, the engine's kernels
    launched on the card; it prints the step times against the 30 ms hop,
-   the least lead of the render loop and the underruns.
+   the least lead of the render loop and the underruns;
+10. the parallel paths (``parallel/``) and the per-hop forms: at world
+   size 1 on NCCL in this process, ``sharded_step`` at the fast pool's
+   shape (S=128, H=32), ``sharded_fidelity_step`` at the preset (S=128,
+   H=8; a formant run too) and ``sharded_live_fidelity_step`` (S=64,
+   H=8), two steps each, held bit-equal to the unsharded step and timed
+   beside it; ``stretch_offline_sharded`` on a (1, 1) mesh, 8 streams of
+   60 s (2,000 hops, formants), each > 45 dB after the first block against
+   ``stretch_offline`` on the card, with its wall time and aggregate RTF;
+   then four spawned ranks on gloo sharing the card (joined under a
+   deadline): the render on a 2 x 2 mesh (4 streams, 20 s) > 45 dB the
+   same way, and the preset fidelity step over a four-rank stream mesh
+   (32 streams a rank) against the unsharded step, bit-equal or >= 80 dB a
+   voice; last ``batched_fidelity_chunk_scan`` against
+   ``batched_fidelity_chunk`` at the preset, chunk by chunk from one state
+   (JAX's bars: emit within 2e-4, state within 2e-4 relative and absolute,
+   the MINSTD state equal), with both step times and launch counts.  Every
+   path's launches are counted from 0 and join the kernels line.
 
 It prints one JSON line of per-kernel results, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``.  It needs CUDA; without a card
@@ -1679,6 +1696,470 @@ def serve_setups(seed: int, card: str, launches: dict, device: str = "cuda") -> 
                 torch.cuda.empty_cache()
 
 
+# 10. the parallel paths and the per-hop forms
+PARALLEL_DEADLINE_SEC = 300.0   # the four spawned ranks sharing the card are joined under it
+SEQPAR_DB = 45.0                # JAX's bar for the hop-sharded render (tests/test_seqpar.py)
+SCAN_ATOL = 2e-4                # JAX's bars for the per-hop form (tests/test_spectral.py)
+TIMED_PAIRS = 6                 # sharded and unsharded steps timed in turns after the check
+# phase 10's shapes: (streams, hops a step) of each step, (streams, seconds
+# out) of each hop-sharded render
+P10 = {"fast": (128, 32), "fidelity": (128, 8), "live": (64, 8), "seqpar": (8, 60.0),
+       "seqpar4": (4, 20.0)}
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tracks(s_n: int, n: int, seed: int, device):
+    """[S, 2, n] float32 made on ``device`` from ``seed``: two tones a
+    stream and channel and a little noise."""
+    import torch
+
+    f = np.random.default_rng(seed).uniform(110.0, 880.0, (s_n, 2, 2))
+    f = torch.from_numpy(f).to(device)
+    t = torch.arange(n, dtype=torch.float64, device=device) / SR
+    x = (0.3 * torch.sin(2 * np.pi * f[..., :1] * t)
+         + 0.15 * torch.sin(2 * np.pi * f[..., 1:] * t)).to(torch.float32)
+    g = torch.Generator(device=device).manual_seed(seed)
+    return x + 0.02 * torch.randn(x.shape, generator=g, device=device)
+
+
+def _voices(s_n: int):
+    """Rates 0.5-2.0 and semitones -12..+12 across the streams."""
+    return np.linspace(0.5, 2.0, s_n), np.linspace(-12.0, 12.0, s_n)
+
+
+def _fast_inputs(s_n: int, h: int, steps: int, seed: int, device):
+    """The fast pool's shape: formants off (no voice uses them), 120/30 ms."""
+    import torch
+
+    from bauklank_tpu_torch.engine.batched import formants_off
+    from bauklank_tpu_torch.engine.config import preset_default
+    from bauklank_tpu_torch.engine.offline import frame_ends_for
+    from bauklank_tpu_torch.engine.params import StretchParams
+
+    cfg = formants_off(preset_default(2, SR))
+    rates, tones = _voices(s_n)
+    params = StretchParams.stack([StretchParams.make(rate=r, semitones=s, device=device)
+                                  for r, s in zip(rates, tones)])
+    ends = [torch.from_numpy(np.stack([frame_ends_for(cfg, k * h * cfg.interval, h, r)
+                                       for r in rates]).astype(np.int32)).to(device)
+            for k in range(steps)]
+    n = int(steps * h * cfg.interval * rates.max()) + 2 * cfg.block
+    return cfg, _tracks(s_n, n, seed, device), ends, params
+
+
+def _fidelity_inputs(s_n: int, h: int, steps: int, seed: int, device, formants: bool = False):
+    """The fidelity preset (block 5292, fft 6144, 3072 bands): controls as
+    the pool computes them; with ``formants`` the three formant controls
+    too (a shift on auto f0, compensation on odd voices)."""
+    import torch
+
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    cfg = fid.SpectralConfig(2, 5292, 1323, formants=formants)
+    rates, tones = _voices(s_n)
+    ends = np.stack([fid.hop_frame_ends(cfg, steps * h, r, SR) for r in rates])
+    mult = np.exp2(tones / 12).astype(np.float32)
+    ctl = [np.minimum(1.0 / rates, cfg.interval).astype(np.float32), mult,
+           ((8000.0 / SR) / np.sqrt(mult)).astype(np.float32), np.ones(s_n, np.float32)]
+    if formants:
+        ctl += [np.exp2(np.linspace(-5.0, 5.0, s_n) / 12).astype(np.float32),
+                (np.arange(s_n) % 2).astype(np.float32), np.zeros(s_n, np.float32)]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    n = int(steps * h * cfg.interval * rates.max()) + 2 * cfg.block
+    return (cfg, _tracks(s_n, n, seed, device),
+            [to(ends[:, k * h:(k + 1) * h]) for k in range(steps)], [to(c) for c in ctl])
+
+
+def _seqpar_inputs(s_n: int, seconds: float, seed: int, device):
+    """The fast preset with formants; audio long enough for the fastest rate."""
+    from bauklank_tpu_torch.engine.config import preset_default
+    from bauklank_tpu_torch.engine.params import StretchParams
+
+    cfg = preset_default(2, SR)
+    rates, tones = _voices(s_n)
+    params = StretchParams.stack([StretchParams.make(rate=r, semitones=s, device=device)
+                                  for r, s in zip(rates, tones)])
+    n_out = int(round(seconds * SR))
+    audio = _tracks(s_n, int(n_out * rates.max()) + 2 * cfg.block, seed, device)
+    return cfg, audio, rates, params, n_out
+
+
+def _leaves(tree) -> list:
+    from bauklank_tpu_torch.utils.tree import keyed_leaves
+
+    return [x for _, x in keyed_leaves(tree)]
+
+
+def _run_counted(fn, steps: list, device="cuda"):
+    """Run ``fn(state, *args)`` over ``steps`` from the first step's state,
+    with the launch counts set to 0 before and read after.  Returns
+    (final state, outputs, ms a step, counts)."""
+    from bauklank_tpu_torch import kernels
+
+    state, outs, ms = steps[0][0], [], []
+    kernels.reset_launches()
+    for _, *args in steps:
+        _sync(device)
+        t0 = time.perf_counter()
+        state, out = fn(state, *args)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return state, outs, ms, dict(kernels.LAUNCHES)
+
+
+def _check_counts(what: str, counts: dict, per_step: dict, steps: int, launches: dict) -> None:
+    want = {k: steps * per_step.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, not {steps} x {per_step}")
+    for k, v in counts.items():
+        launches[k] += v
+
+
+def _in_turns(fn_a, fn_b, state_a, state_b, args_a, args_b, pairs: int, device) -> tuple:
+    """ms a step of ``fn_a`` and ``fn_b``, stepped in turns (a b, b a, ...)
+    from their own states on the same arguments."""
+    ms = ([], [])
+    for r in range(pairs):
+        for which in ((0, 1) if r % 2 == 0 else (1, 0)):
+            _sync(device)
+            t0 = time.perf_counter()
+            if which == 0:
+                state_a, _ = fn_a(state_a, *args_a)
+            else:
+                state_b, _ = fn_b(state_b, *args_b)
+            _sync(device)
+            ms[which].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _local(tree):
+    return [x.to_local() for x in _leaves(tree)]
+
+
+def _same(what: str, sharded_outs, sharded_state, outs, state) -> None:
+    import torch
+
+    for k, (a, b) in enumerate(zip(sharded_outs, outs)):
+        if not torch.equal(a.to_local(), b):
+            raise AssertionError(f"{what}: step {k} differs from the unsharded step by "
+                                 f"{float((a.to_local() - b).abs().max())}")
+    for a, b in zip(_local(sharded_state), _leaves(state)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: the carried state differs from the unsharded step's")
+
+
+def stream_dp_one_rank(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """World size 1 on NCCL in this process: each sharded step of
+    ``parallel.mesh`` at full width, held bit-equal to the unsharded
+    batched function on the same inputs, both timed."""
+    import torch
+
+    from bauklank_tpu_torch.engine import fidelity as fid
+    from bauklank_tpu_torch.engine.batched import batched_process_chunk, init_batched_state
+    from bauklank_tpu_torch.parallel import shard_streams, sharded_step, stream_mesh
+    from bauklank_tpu_torch.parallel.mesh import (
+        sharded_fidelity_step, sharded_live_fidelity_step)
+
+    mesh = stream_mesh(device_type=torch.device(device).type)
+    kinds = {}
+
+    s_n, h = P10["fast"]
+    cfg, audio, ends, params = _fast_inputs(s_n, h, 2, seed, device)
+    sh = shard_streams(mesh, (init_batched_state(cfg, s_n, device), audio, *ends, params))
+    step = sharded_step(cfg, mesh)
+    kinds[f"sharded_step (fast, S={s_n} H={h})"] = (
+        lambda st, e: step(st, sh[1], e, sh[-1]),
+        [(sh[0], sh[2]), (None, sh[3])],
+        lambda st, e: batched_process_chunk(cfg, st, audio, e, params),
+        [(init_batched_state(cfg, s_n, device), ends[0]), (None, ends[1])],
+        {"frames_windowed": 1, "banded_interp": 1})
+
+    s_n, h = P10["fidelity"]
+    for formants in (False, True):
+        cfg_f, audio_f, ends_f, ctl = _fidelity_inputs(s_n, h, 2, seed + 1, device, formants)
+        sh_f = shard_streams(mesh, (fid.init_batched_fidelity_state(cfg_f, s_n, device),
+                                    audio_f, *ends_f, *ctl))
+        step_f = sharded_fidelity_step(cfg_f, mesh, formants=formants)
+        kinds[f"sharded_fidelity_step (preset, S={s_n} H={h}"
+              f"{', formants' if formants else ''})"] = (
+            lambda st, e, step_f=step_f, sh_f=sh_f: step_f(st, sh_f[1], e, *sh_f[4:]),
+            [(sh_f[0], sh_f[2]), (None, sh_f[3])],
+            lambda st, e, cfg_f=cfg_f, audio_f=audio_f, ctl=ctl: fid.batched_fidelity_chunk(
+                cfg_f, st, audio_f, e, *ctl),
+            [(fid.init_batched_fidelity_state(cfg_f, s_n, device), ends_f[0]), (None, ends_f[1])],
+            {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 3 if formants else 2,
+             "band_chain": h})
+
+    s_n, h = P10["live"]
+    cfg_l, chunks, _, ctl_l = _fidelity_inputs(s_n, h, 2, seed + 2, device)
+    n = h * cfg_l.interval
+    chunks = [chunks[..., k * n:(k + 1) * n].contiguous() for k in range(2)]
+    sh_l = shard_streams(mesh, (fid.init_batched_live_fidelity_state(cfg_l, h, s_n, device),
+                                *chunks, *ctl_l[1:]))
+    step_l = sharded_live_fidelity_step(cfg_l, h, mesh)
+    kinds[f"sharded_live_fidelity_step (preset, S={s_n} H={h})"] = (
+        lambda st, c: step_l(st, c, *sh_l[3:]),
+        [(sh_l[0], sh_l[1]), (None, sh_l[2])],
+        lambda st, c: fid.batched_live_fidelity_chunk(cfg_l, st, c, *ctl_l[1:]),
+        [(fid.init_batched_live_fidelity_state(cfg_l, h, s_n, device), chunks[0]),
+         (None, chunks[1])],
+        {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": h})
+
+    for what, (sharded, sh_steps, plain, steps, per_step) in kinds.items():
+        plain(*steps[0])                    # first use of the geometry, untimed
+        st_sh, outs_sh, ms_sh, counts = _run_counted(sharded, sh_steps, device)
+        _check_counts(what, counts, per_step, len(sh_steps), launches)
+        st, outs, ms, _ = _run_counted(plain, steps, device)
+        _same(what, outs_sh, st_sh, outs, st)
+        t_sh, t_pl = _in_turns(sharded, plain, st_sh, st, sh_steps[-1][1:], steps[-1][1:],
+                               TIMED_PAIRS, device)
+        log(f"[parallel] {what}, world size 1 ({torch.distributed.get_backend()}): bit-equal to "
+            f"the unsharded step over {len(steps)} steps (ms a step sharded "
+            f"{', '.join(f'{m:.2f}' for m in ms_sh)}, unsharded "
+            f"{', '.join(f'{m:.2f}' for m in ms)}); then {TIMED_PAIRS} pairs in turns, median "
+            f"(min-max) ms a step: sharded {np.median(t_sh):.2f} ({min(t_sh):.2f}-"
+            f"{max(t_sh):.2f}), unsharded {np.median(t_pl):.2f} ({min(t_pl):.2f}-"
+            f"{max(t_pl):.2f}); launches {counts} | {card}")
+        torch.cuda.empty_cache()
+
+
+def _seqpar_snr(cfg, audio, rates, params, got, n_out: int, device="cuda") -> list:
+    """Each stream of a hop-sharded render against ``stretch_offline`` on
+    the card, after the first block."""
+    from bauklank_tpu_torch.engine.offline import stretch_offline
+    from bauklank_tpu_torch.engine.params import StretchParams
+
+    out = []
+    for i in range(audio.shape[0]):
+        want = stretch_offline(audio[i].cpu().numpy(), float(rates[i]), cfg,
+                               params=StretchParams(*[f[i] for f in params]), n_out=n_out,
+                               device=device)
+        ref, g = want[:, cfg.block:], got[i][:, cfg.block:n_out]
+        out.append(float(10 * np.log10(np.mean(ref ** 2) / max(np.mean((ref - g) ** 2), 1e-30))))
+    return out
+
+
+def seqpar_one_rank(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """``stretch_offline_sharded`` on a (1, 1) mesh on NCCL: 8 streams,
+    60 s out each (2,000 hops), against ``stretch_offline`` on the card."""
+    import torch
+
+    from bauklank_tpu_torch.parallel.seqpar import stream_seq_mesh, stretch_offline_sharded
+
+    s_n, seconds = P10["seqpar"]
+    cfg, audio, rates, params, n_out = _seqpar_inputs(s_n, seconds, seed + 3, device)
+    mesh = stream_seq_mesh(1, 1, device_type=torch.device(device).type)
+    _, outs, ms, counts = _run_counted(
+        lambda _, a: (None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)),
+        [(None, audio), (None, audio)], device)
+    _check_counts("stretch_offline_sharded (1, 1), twice", counts,
+                  {"frames_windowed": 1, "banded_interp": 3}, 2, launches)
+    if not torch.equal(outs[0].to_local(), outs[1].to_local()):
+        raise AssertionError("two hop-sharded renders of the same input differ")
+    got = outs[1].to_local()[..., :n_out].cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError("non-finite hop-sharded render")
+    snr = _seqpar_snr(cfg, audio, rates, params, got, n_out, device)
+    log(f"[parallel] stretch_offline_sharded, (1, 1) mesh ({torch.distributed.get_backend()}), "
+        f"{s_n} streams x {n_out / SR:.0f} s ({-(-n_out // cfg.interval)} hops, formants), "
+        f"rendered twice: {ms[0] / 1e3:.3f} s wall the first time (first use of its shapes), "
+        f"{ms[1] / 1e3:.3f} s the second, aggregate RTF "
+        f"{s_n * n_out / SR / (ms[0] / 1e3):.1f}x; {s_n * n_out / SR / (ms[1] / 1e3):.1f}x; "
+        f"against stretch_offline on the card after the first block "
+        f"{', '.join(f'{s:.2f}' for s in snr)} dB (bound > {SEQPAR_DB}); launches {counts} "
+        f"| {card}")
+    if not min(snr) > SEQPAR_DB:
+        raise AssertionError(f"hop-sharded render under {SEQPAR_DB} dB: {snr}")
+
+
+def _phase10_rank(rank: int, store: str, out_dir: str, seed: int, device: str,
+                  shapes: dict) -> None:
+    """One of four ranks sharing the card (gloo; compute on ``cuda:0``):
+    the hop-sharded render on a 2 x 2 mesh, then the fidelity step over a
+    four-rank stream mesh.  Writes its pieces, launch counts and times
+    under ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from bauklank_tpu_torch.engine import fidelity as fid
+    from bauklank_tpu_torch.parallel import shard_streams, stream_mesh
+    from bauklank_tpu_torch.parallel.mesh import sharded_fidelity_step
+    from bauklank_tpu_torch.parallel.seqpar import stream_seq_mesh, stretch_offline_sharded
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=4,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        report = {"backend": dist.get_backend()}
+        kind = torch.device(device).type
+        cfg, audio, rates, params, n_out = _seqpar_inputs(*shapes["seqpar4"], seed + 4, device)
+        mesh = stream_seq_mesh(2, 2, device_type=kind)
+        _, outs, ms, report["seqpar_counts"] = _run_counted(
+            lambda _, a: (None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)),
+            [(None, audio)], device)
+        report["seqpar_ms"] = ms[0]
+        np.save(os.path.join(out_dir, f"seqpar{rank}.npy"), outs[0].to_local().cpu().numpy())
+        s_n, h = shapes["fidelity"]
+        cfg_f, audio_f, ends_f, ctl = _fidelity_inputs(s_n, h, 2, seed + 5, device)
+        smesh = stream_mesh(device_type=kind)
+        step = sharded_fidelity_step(cfg_f, smesh)
+        sh = shard_streams(smesh, (fid.init_batched_fidelity_state(cfg_f, s_n, device),
+                                   audio_f, *ends_f, *ctl))
+        _, outs, report["dp_ms"], report["dp_counts"] = _run_counted(
+            lambda st, e: step(st, sh[1], e, *sh[4:]), [(sh[0], sh[2]), (None, sh[3])], device)
+        for k, out in enumerate(outs):
+            np.save(os.path.join(out_dir, f"dp{rank}_{k}.npy"), out.to_local().cpu().numpy())
+        with open(os.path.join(out_dir, f"report{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def four_ranks_one_card(seed: int, card: str, launches: dict, tmp: str,
+                        device: str = "cuda") -> None:
+    """Four spawned ranks on the one card (gloo): the hop-sharded render
+    on a 2 x 2 mesh against ``stretch_offline``, and the fidelity step over
+    a four-rank stream mesh (32 streams a rank) against the unsharded
+    step: bit-equal, or, if cuFFT's batch width rounds otherwise, the
+    card's stage gate (>= 80 dB a voice)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_phase10_rank,
+                             args=(os.path.join(tmp, "store4"), tmp, seed, device, dict(P10)),
+                             nprocs=4, join=False, start_method="spawn")
+    end = time.monotonic() + PARALLEL_DEADLINE_SEC
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.1)):
+            if time.monotonic() >= end:
+                raise AssertionError(f"the four ranks did not finish within "
+                                     f"{PARALLEL_DEADLINE_SEC} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join(10)
+    wall = time.perf_counter() - t0
+    reports = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"report{r}.json")) as f:
+            reports.append(json.load(f))
+    backends = sorted({r["backend"] for r in reports})
+    for r in reports:
+        _check_counts("a rank's stretch_offline_sharded (2, 2)", r["seqpar_counts"],
+                      {"frames_windowed": 1, "banded_interp": 3}, 1, launches)
+        _check_counts("a rank's sharded_fidelity_step", r["dp_counts"],
+                      {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2,
+                       "band_chain": P10["fidelity"][1]}, 2, launches)
+
+    # the 2 x 2 render: rank r holds the streams of stream rank r // 2 and
+    # the hops of seq rank r % 2
+    cfg, audio, rates, params, n_out = _seqpar_inputs(*P10["seqpar4"], seed + 4, device)
+    pieces = [np.load(os.path.join(tmp, f"seqpar{r}.npy")) for r in range(4)]
+    got = np.concatenate([np.concatenate(pieces[2 * s:2 * s + 2], axis=-1) for s in range(2)])
+    snr = _seqpar_snr(cfg, audio, rates, params, got, n_out, device)
+    log(f"[parallel] stretch_offline_sharded, 2 x 2 mesh of four ranks on one card "
+        f"({'/'.join(backends)}), {audio.shape[0]} streams x {n_out / SR:.0f} s: a rank's wall "
+        f"{max(r['seqpar_ms'] for r in reports) / 1e3:.3f} s; against stretch_offline on the "
+        f"card {', '.join(f'{s:.2f}' for s in snr)} dB (bound > {SEQPAR_DB}) | {card}")
+    if not min(snr) > SEQPAR_DB:
+        raise AssertionError(f"the four-rank hop-sharded render under {SEQPAR_DB} dB: {snr}")
+
+    s_n, h = P10["fidelity"]
+    cfg_f, audio_f, ends_f, ctl = _fidelity_inputs(s_n, h, 2, seed + 5, device)
+    state = fid.init_batched_fidelity_state(cfg_f, s_n, device)
+    worst, equal = float("inf"), True
+    for k, e in enumerate(ends_f):
+        state, out = fid.batched_fidelity_chunk(cfg_f, state, audio_f, e, *ctl)
+        want = out.cpu()
+        got = torch.from_numpy(np.concatenate(
+            [np.load(os.path.join(tmp, f"dp{r}_{k}.npy")) for r in range(4)]))
+        equal = equal and torch.equal(got, want)
+        for i in range(s_n):
+            worst = min(worst, _snr(want[i], got[i]))
+    log(f"[parallel] sharded_fidelity_step over four ranks on one card ({'/'.join(backends)}), "
+        f"S={s_n} ({s_n // 4} a rank), 2 steps: "
+        f"{'bit-equal to' if equal else 'not bit-equal to'} the "
+        f"unsharded step; worst voice {worst:.2f} dB (gate {PARITY_DB} dB); a rank's ms a "
+        f"step {', '.join(f'{m:.2f}' for m in reports[0]['dp_ms'])} (four ranks sharing the "
+        f"card); phase 10's four ranks took {wall:.1f} s | {card}")
+    if not (equal or worst >= PARITY_DB):
+        raise AssertionError(f"the four-rank fidelity step disagrees: worst voice {worst} dB")
+
+
+def hop_forms(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """The per-hop form (``batched_fidelity_chunk_scan``) against the
+    serving step at the preset, chunk by chunk from the same state, with
+    JAX's bars, and the launches of each."""
+    import torch
+
+    from bauklank_tpu_torch.engine import fidelity as fid
+
+    s_n, h = P10["fidelity"]
+    cfg, audio, ends, ctl = _fidelity_inputs(s_n, h, 2, seed + 6, device)
+    state = fid.init_batched_fidelity_state(cfg, s_n, device)
+    for k, e in enumerate(ends):
+        sa, outs_a, ms_a, counts_a = _run_counted(
+            lambda st, e: fid.batched_fidelity_chunk(cfg, st, audio, e, *ctl), [(state, e)],
+            device)
+        _check_counts("batched_fidelity_chunk", counts_a, {"frames_windowed": 1,
+                      "comp_cumsum": 1, "frac_gather": 2, "band_chain": h}, 1, launches)
+        sb, outs_b, ms_b, counts_b = _run_counted(
+            lambda st, e: fid.batched_fidelity_chunk_scan(cfg, st, audio, e, *ctl), [(state, e)],
+            device)
+        _check_counts("batched_fidelity_chunk_scan", counts_b, {"frames_windowed": 1,
+                      "comp_cumsum": h, "frac_gather": 2 * h, "band_chain": h}, 1, launches)
+        emit = float((outs_a[0] - outs_b[0]).abs().max())
+        leaf = max(float(((a - b).abs() - 2e-4 * b.abs()).max())
+                   for a, b in zip(_leaves(sa), _leaves(sb)) if a.is_floating_point()
+                   or a.is_complex())
+        rng = bool(torch.equal(sa[0].rng, sb[0].rng))
+        log(f"[parallel] batched_fidelity_chunk_scan against batched_fidelity_chunk (preset, "
+            f"S={s_n} H={h}), chunk {k}: emit max |diff| {emit!r} (bound {SCAN_ATOL}), state "
+            f"leaves max |diff| - 2e-4 |b| {leaf!r} (bound {SCAN_ATOL}), rng equal {rng}; "
+            f"ms {ms_a[0]:.2f} hoisted, {ms_b[0]:.2f} per hop; launches {counts_a} and "
+            f"{counts_b} | {card}")
+        if not (emit <= SCAN_ATOL and leaf <= SCAN_ATOL and rng):
+            raise AssertionError(f"the per-hop form disagrees: {emit}, {leaf}, {rng}")
+        state = sb
+
+
+def parallel_paths(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
+    """Phase 10 minus the per-hop forms: world size 1 on NCCL in this
+    process (a ``file://`` store in a temporary directory), then four
+    spawned ranks sharing the card."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store1", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            stream_dp_one_rank(seed, card, launches, device)
+            seqpar_one_rank(seed, card, launches, device)
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        four_ranks_one_card(seed, card, launches, tmp, device)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1904,6 +2385,12 @@ def main(argv=None) -> int:
     cli_stretch(opts.seed, card, launches)
     serve_setups(opts.seed, card, launches)
     log(f"[server] phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    # 10. the parallel paths and the per-hop forms
+    t10 = time.perf_counter()
+    parallel_paths(opts.seed, card, launches)
+    hop_forms(opts.seed, card, launches)
+    log(f"[parallel] phase 10 took {time.perf_counter() - t10:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

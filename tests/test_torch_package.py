@@ -63,7 +63,7 @@ def test_front_page_exports_what_the_jax_package_exports():
         assert getattr(bauklank_tpu_torch, name) is not None
 
 
-@pytest.mark.parametrize("sub", ["engine", "serve", "models", "runtime"])
+@pytest.mark.parametrize("sub", ["engine", "serve", "models", "runtime", "parallel"])
 def test_subpackages_export_what_the_jax_subpackages_export(sub):
     import importlib
 
@@ -212,9 +212,17 @@ def test_fast_step_builds_its_constant_tables_once():
     assert [c.cache_info().misses for c in caches] == misses
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """With no CUDA device and no ``device`` given, every entry point
-    raises instead of carrying on quietly on the CPU."""
+    raises instead of carrying on quietly on the CPU; the meshes too,
+    with a process group of one gloo rank to build them on."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from bauklank_tpu_torch.parallel import stream_mesh
+    from bauklank_tpu_torch.parallel.seqpar import stream_seq_mesh
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = StretchConfig(channels=1, block=1024, interval=256)
     audio = np.zeros((1, 4000), np.float32)
@@ -231,9 +239,15 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: StretchNode(),
         lambda: init_live_state(cfg),
     ]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            call()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        for call in calls + [lambda: stream_mesh(), lambda: stream_seq_mesh(1, 1)]:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert stream_mesh(device_type="cpu").mesh_dim_names == ("stream",)
+    finally:
+        dist.destroy_process_group()
     assert StreamPool(capacity=1, max_track_sec=1.0, device="cpu").device.type == "cpu"
 
 
