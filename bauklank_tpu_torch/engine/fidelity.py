@@ -483,8 +483,10 @@ def render_fidelity(
     ``native.render_reference``.  ``state``: the stream's state to start
     from instead of a fresh one seeded with ``seed``: a
     :class:`SpectralState` without a stream axis, as JAX's
-    ``render_fidelity`` takes it (the overlap-add starts empty), or the
-    pair (SpectralState, ola_tail) that :func:`fidelity_chunk` carries.
+    ``render_fidelity`` takes it (the overlap-add starts empty).  Beyond
+    JAX's contract it also takes the pair (SpectralState, ola_tail) that
+    :func:`fidelity_chunk` carries, and then continues a render exactly
+    where another left off: two halves rendered so equal one call.
     It runs on ``device``, the card unless the caller passes another.
     audio [C, T] float32 -> [C, n_out] float32."""
     device = resolve_device(device)

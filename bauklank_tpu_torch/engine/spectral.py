@@ -38,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from bauklank_tpu_torch.kernels.bandchain import band_chain
+from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
 from bauklank_tpu_torch.ops import mdft
 from bauklank_tpu_torch.ops.gather import chainfetch, frac_gather
@@ -744,25 +744,24 @@ def spectral_hop(cfg: SpectralConfig, state: SpectralState, spec_in, spec_prev, 
     """One hop of the blob's processSpectrum for one stream: state without
     a stream axis, spec_in and spec_prev [C, B] (the analyses at the frame
     and one interval back), scalar controls.  Returns (state, out [C, B]).
-    The band chain is the plain sequence (:func:`_band_chain_scan`), as in
-    the JAX package; formant processing runs where ``cfg.formants`` and the
-    formant controls are given."""
+    :func:`spectral_hop_batched` at one stream: the band chain is kernel 4
+    on the card and its plain version on the CPU; formant processing runs
+    where ``cfg.formants`` and the formant controls are given."""
     dev = spec_in.device
     one = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(1)
     formants = [None if v is None else one(v)
                 for v in (formant_factor, formant_compensation, formant_base)]
-    chain, (rng, fv, fw, pe) = _chain_inputs(
+    new, out = spectral_hop_batched(
         cfg, tree_map(lambda v: v[None], state), spec_in[None], spec_prev[None],
         one(time_factor), one(mult), one(limit), *formants)
-    out = _band_chain_scan(cfg, chain)[0]
-    return SpectralState(prev_output=out, prev_pred_energy=pe[0], rng=rng[0],
-                         f_value_ema=fv[0], f_weighted_ema=fw[0]), out
+    return tree_map(lambda v: v[0], new), out[0]
 
 
 # ------------------------------------------------------------ band chain
-def band_chain_packed(cfg: SpectralConfig, chain) -> torch.Tensor:
+def band_chain_packed(cfg: SpectralConfig, chain, fn=None) -> torch.Tensor:
     """Pack batched chain inputs into the band-chain layout ([planes, B, S],
-    streams minor), run kernel 4, and unpack to [S, C, B] complex64.
+    streams minor), run kernel 4 (or ``fn``, which takes the same operands),
+    and unpack to [S, C, B] complex64.
 
     chain = (d1, d2, u12, pe_mc, pi_mc, mc, lock, pred_energy, pred_input)
     with [S, B] leader operands and [S, C, B] per-channel ones."""
@@ -785,65 +784,16 @@ def band_chain_packed(cfg: SpectralConfig, chain) -> torch.Tensor:
         ])
         for c in range(c_n)
     ])                                                            # [C, 6, B, S]
-    out = band_chain(lead.contiguous(), chan.contiguous(), cfg.long_step)
+    out = (fn or band_chain)(lead.contiguous(), chan.contiguous(), cfg.long_step)
     return torch.complex(out[:, 0], out[:, 1]).permute(2, 0, 1)   # [S, C, B]
 
 
-def _cmul_parts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b with each real product and sum rounded on its own: the band
-    chain's operation order (``kernels/bandchain.py:band_chain_ref``)."""
-    return torch.complex(a.real * b.real - a.imag * b.imag, a.real * b.imag + a.imag * b.real)
-
-
-def _abs2(z: torch.Tensor) -> torch.Tensor:
-    return z.real * z.real + z.imag * z.imag
-
-
-def _scaled(s: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    return torch.complex(s * z.real, s * z.imag)
-
-
 def _band_chain_scan(cfg: SpectralConfig, chain) -> torch.Tensor:
-    """The sequential Gauss-Seidel chain over bands, written out on
-    complex tensors: band b's leader phase sums ``u12`` and the leader's
-    outputs at bands b-1 and b-long_step through ``d1`` and ``d2``, scaled
-    to the leader's predicted energy; the other channels lock to the
-    leader's phase through ``lock``; a phase sum at or under ``EPS`` falls
-    back to the predicted input.  ``chain`` as :func:`band_chain_packed`
-    takes it ([S, ...] operands).  Returns [S, C, B] complex64, bit for
-    bit what the band chain's plain version gives (every product and sum
-    rounded on its own, in its order)."""
-    d1, d2, u12, pe_mc, pi_mc, mc, lock, pred_energy, pred_input = chain
-    s_n, c_n, b_n = pred_input.shape
-    long_step = cfg.long_step
-    onehot = (mc[:, None, :] == torch.arange(c_n, device=mc.device)[None, :, None])
-    lead_f = onehot.to(torch.float32)                                  # [S, C, B]
-    outs = []
-
-    def leader(out_b, b):  # the leader channel of band b's output: one nonzero term
-        return torch.complex((out_b.real * lead_f[..., b]).sum(1),
-                             (out_b.imag * lead_f[..., b]).sum(1))
-
-    for b in range(b_n):
-        ph = u12[:, b]
-        if b >= 1:
-            ph = ph + _cmul_parts(leader(outs[b - 1], b), d1[:, b])
-        if b >= long_step:
-            ph = ph + _cmul_parts(leader(outs[b - long_step], b), d2[:, b])
-        p2 = _abs2(ph)
-        tiny = p2 <= EPS
-        ph = torch.where(tiny, pi_mc[:, b], ph)
-        p2 = torch.where(tiny, _abs2(pi_mc[:, b]) + EPS, p2)
-        out_mc = _scaled(torch.sqrt(pe_mc[:, b] / p2), ph)              # [S]
-        # the other channels lock to the leader's phase
-        ph_c = _cmul_parts(out_mc[:, None], lock[..., b])               # [S, C]
-        p2_c = _abs2(ph_c)
-        tiny_c = p2_c <= EPS
-        ph_c = torch.where(tiny_c, pred_input[..., b], ph_c)
-        p2_c = torch.where(tiny_c, _abs2(pred_input[..., b]) + EPS, p2_c)
-        out_c = _scaled(torch.sqrt(pred_energy[..., b] / p2_c), ph_c)
-        outs.append(torch.where(onehot[..., b], out_mc[:, None], out_c))
-    return torch.stack(outs, dim=-1)
+    """The sequential Gauss-Seidel chain over bands, as a plain loop on
+    every device: kernel 4's plain version (``band_chain_ref``) on the
+    operands :func:`band_chain_packed` packs.  ``chain`` as that function
+    takes it ([S, ...] operands).  Returns [S, C, B] complex64."""
+    return band_chain_packed(cfg, chain, band_chain_ref)
 
 
 def spectral_hop_batched(cfg: SpectralConfig, state: SpectralState, spec_in, spec_prev,

@@ -521,12 +521,8 @@ def library_call(name: str, args):
                                   align_corners=True)), layout
 
 
-def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
-    """Each captured kernel call against its plain version on the card,
-    with its time, its plain version's, its bound and, where there is
-    one, the library call's."""
-    import torch
-
+def kernel_pairs() -> dict:
+    """Each kernel wrapper's name: (the wrapper, its plain version)."""
     from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
     from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
     from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
@@ -535,7 +531,7 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
     from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
                                                    banded_interp_ref)
 
-    pairs = {
+    return {
         "frames_windowed": (frames_windowed, frames_windowed_ref),
         "comp_cumsum": (comp_cumsum, comp_cumsum_ref),
         "frac_gather": (frac_gather, frac_gather_ref),
@@ -545,6 +541,43 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
         "pallas_gather": (pallas_gather, frac_gather_ref),
         "chainfetch": (chainfetch, chainfetch_ref),
     }
+
+
+def hold_to_plain(ops: dict, what: str) -> dict:
+    """Each kernel call captured on a path (:func:`capture_operands`)
+    against its plain version on the same operands: bit-equal
+    (TOLERANCE), finite.  Untimed.  Returns each kernel's worst max
+    |diff| and the shapes it was held at."""
+    import torch
+
+    pairs = kernel_pairs()
+    held = {}
+    for name, calls in ops.items():
+        kern, ref = pairs[name]
+        for args in calls:
+            got, want = kern(*args), ref(*args)
+            err = float((got - want).abs().max())
+            if not bool(torch.isfinite(got).all()) or err > TOLERANCE:
+                raise AssertionError(f"{name} ({what}) disagrees with its plain version at "
+                                     f"{[tuple(a.shape) for a in args if hasattr(a, 'shape')]}"
+                                     f": {err}")
+            worst, shapes = held.get(name, (0.0, []))
+            held[name] = (max(worst, err), shapes + [
+                " ".join(str(tuple(a.shape)) for a in args if hasattr(a, "shape"))])
+            del got, want
+    return held
+
+
+def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
+    """Each captured kernel call against its plain version on the card,
+    with its time, its plain version's, its bound and, where there is
+    one, the library call's."""
+    import torch
+
+    from bauklank_tpu_torch.kernels.gather import frac_gather
+    from bauklank_tpu_torch.kernels.interp import banded_interp
+
+    pairs = kernel_pairs()
     for name, calls in ops.items():
         kern, ref = pairs[name]
         if name == "frames_windowed":
@@ -1699,6 +1732,8 @@ def serve_setups(seed: int, card: str, launches: dict, device: str = "cuda") -> 
 # 10. the parallel paths and the per-hop forms
 PARALLEL_DEADLINE_SEC = 300.0   # the four spawned ranks sharing the card are joined under it
 SEQPAR_DB = 45.0                # JAX's bar for the hop-sharded render (tests/test_seqpar.py)
+# the wrappers a hop-sharded render calls (kernel 5's two entry points)
+SEQPAR_KERNELS = {"frames_windowed", "banded_interp", "banded_interp_complex"}
 SCAN_ATOL = 2e-4                # JAX's bars for the per-hop form (tests/test_spectral.py)
 TIMED_PAIRS = 6                 # sharded and unsharded steps timed in turns after the check
 # phase 10's shapes: (streams, hops a step) of each step, (streams, seconds
@@ -1956,11 +1991,27 @@ def seqpar_one_rank(seed: int, card: str, launches: dict, device: str = "cuda") 
     s_n, seconds = P10["seqpar"]
     cfg, audio, rates, params, n_out = _seqpar_inputs(s_n, seconds, seed + 3, device)
     mesh = stream_seq_mesh(1, 1, device_type=torch.device(device).type)
-    _, outs, ms, counts = _run_counted(
-        lambda _, a: (None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)),
-        [(None, audio), (None, audio)], device)
+    ops, renders = {}, 0
+
+    def render(_, a):
+        # the first render records each kernel's operands at the seqpar grid
+        nonlocal renders
+        renders += 1
+        with (capture_operands(ops, "fast") if renders == 1 else contextlib.nullcontext()):
+            return None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)
+
+    _, outs, ms, counts = _run_counted(render, [(None, audio), (None, audio)], device)
     _check_counts("stretch_offline_sharded (1, 1), twice", counts,
                   {"frames_windowed": 1, "banded_interp": 3}, 2, launches)
+    held = hold_to_plain(ops, "stretch_offline_sharded (1, 1)")
+    ops.clear()
+    if set(held) != SEQPAR_KERNELS:
+        raise AssertionError(f"the render held {sorted(held)} to their plain versions, not "
+                             f"{sorted(SEQPAR_KERNELS)}")
+    log(f"[parallel] stretch_offline_sharded (1, 1): each kernel call of the first render "
+        f"against its plain version on the same operands: "
+        + "; ".join(f"{k} at {', '.join(sh)} max_abs_err={e!r}" for k, (e, sh) in held.items())
+        + f" (bound {TOLERANCE}) | {card}")
     if not torch.equal(outs[0].to_local(), outs[1].to_local()):
         raise AssertionError("two hop-sharded renders of the same input differ")
     got = outs[1].to_local()[..., :n_out].cpu().numpy()
@@ -1969,7 +2020,8 @@ def seqpar_one_rank(seed: int, card: str, launches: dict, device: str = "cuda") 
     snr = _seqpar_snr(cfg, audio, rates, params, got, n_out, device)
     log(f"[parallel] stretch_offline_sharded, (1, 1) mesh ({torch.distributed.get_backend()}), "
         f"{s_n} streams x {n_out / SR:.0f} s ({-(-n_out // cfg.interval)} hops, formants), "
-        f"rendered twice: {ms[0] / 1e3:.3f} s wall the first time (first use of its shapes), "
+        f"rendered twice: {ms[0] / 1e3:.3f} s wall the first time (first use of its shapes, "
+        f"kernel operands copied aside), "
         f"{ms[1] / 1e3:.3f} s the second, aggregate RTF "
         f"{s_n * n_out / SR / (ms[0] / 1e3):.1f}x; {s_n * n_out / SR / (ms[1] / 1e3):.1f}x; "
         f"against stretch_offline on the card after the first block "
@@ -2003,10 +2055,14 @@ def _phase10_rank(rank: int, store: str, out_dir: str, seed: int, device: str,
         kind = torch.device(device).type
         cfg, audio, rates, params, n_out = _seqpar_inputs(*shapes["seqpar4"], seed + 4, device)
         mesh = stream_seq_mesh(2, 2, device_type=kind)
-        _, outs, ms, report["seqpar_counts"] = _run_counted(
-            lambda _, a: (None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)),
-            [(None, audio)], device)
+        ops = {}
+        with capture_operands(ops, "fast"):
+            _, outs, ms, report["seqpar_counts"] = _run_counted(
+                lambda _, a: (None, stretch_offline_sharded(a, rates, cfg, params, n_out, mesh)),
+                [(None, audio)], device)
         report["seqpar_ms"] = ms[0]
+        report["seqpar_held"] = hold_to_plain(ops, f"stretch_offline_sharded (2, 2), rank {rank}")
+        ops.clear()
         np.save(os.path.join(out_dir, f"seqpar{rank}.npy"), outs[0].to_local().cpu().numpy())
         s_n, h = shapes["fidelity"]
         cfg_f, audio_f, ends_f, ctl = _fidelity_inputs(s_n, h, 2, seed + 5, device)
@@ -2073,8 +2129,17 @@ def four_ranks_one_card(seed: int, card: str, launches: dict, tmp: str,
     snr = _seqpar_snr(cfg, audio, rates, params, got, n_out, device)
     log(f"[parallel] stretch_offline_sharded, 2 x 2 mesh of four ranks on one card "
         f"({'/'.join(backends)}), {audio.shape[0]} streams x {n_out / SR:.0f} s: a rank's wall "
-        f"{max(r['seqpar_ms'] for r in reports) / 1e3:.3f} s; against stretch_offline on the "
+        f"{max(r['seqpar_ms'] for r in reports) / 1e3:.3f} s (kernel operands copied aside); "
+        f"each rank's kernel calls against their plain versions on the same operands: "
+        + "; ".join(f"rank {r} " + ", ".join(f"{k} at {' | '.join(sh)} max_abs_err={e!r}"
+                                             for k, (e, sh) in rep["seqpar_held"].items())
+                    for r, rep in enumerate(reports))
+        + f" (bound {TOLERANCE}); against stretch_offline on the "
         f"card {', '.join(f'{s:.2f}' for s in snr)} dB (bound > {SEQPAR_DB}) | {card}")
+    for rep in reports:
+        if set(rep["seqpar_held"]) != SEQPAR_KERNELS:
+            raise AssertionError(f"a rank held {sorted(rep['seqpar_held'])} to their plain "
+                                 f"versions, not {sorted(SEQPAR_KERNELS)}")
     if not min(snr) > SEQPAR_DB:
         raise AssertionError(f"the four-rank hop-sharded render under {SEQPAR_DB} dB: {snr}")
 
@@ -2103,10 +2168,13 @@ def four_ranks_one_card(seed: int, card: str, launches: dict, tmp: str,
 def hop_forms(seed: int, card: str, launches: dict, device: str = "cuda") -> None:
     """The per-hop form (``batched_fidelity_chunk_scan``) against the
     serving step at the preset, chunk by chunk from the same state, with
-    JAX's bars, and the launches of each."""
+    JAX's bars, and the launches of each; then the one-stream hop scan
+    against the plain band chain."""
     import torch
 
     from bauklank_tpu_torch.engine import fidelity as fid
+    from bauklank_tpu_torch.engine import spectral
+    from bauklank_tpu_torch.utils.tree import tree_map
 
     s_n, h = P10["fidelity"]
     cfg, audio, ends, ctl = _fidelity_inputs(s_n, h, 2, seed + 6, device)
@@ -2135,6 +2203,29 @@ def hop_forms(seed: int, card: str, launches: dict, device: str = "cuda") -> Non
         if not (emit <= SCAN_ATOL and leaf <= SCAN_ATOL and rng):
             raise AssertionError(f"the per-hop form disagrees: {emit}, {leaf}, {rng}")
         state = sb
+
+    # the one-stream hop scan (spectral_hop a hop, the body of _render_jit):
+    # kernel 4 at one stream, held bit-equal to the plain chain
+    cur, prev = fid._analyse_cur_prev(cfg, audio[:1], ends[0][:1])
+    one = [c[0] for c in ctl[:3]]
+    st0 = spectral.init_spectral_state(cfg, device)
+    st_k, outs_k, ms_k, counts_k = _run_counted(
+        lambda st, c, p: fid._scan_hops(cfg, st, c, p, *one), [(st0, cur[:, 0], prev[:, 0])],
+        device)
+    _check_counts("_scan_hops", counts_k, {"comp_cumsum": h, "frac_gather": 2 * h,
+                  "band_chain": h}, 1, launches)
+    st_p, outs_p = tree_map(lambda x: x[None], st0), []
+    for i in range(h):
+        st_p, out = spectral.spectral_hop_batched(cfg, st_p, cur[i, :1], prev[i, :1],
+                                                  *(c[:1] for c in ctl[:3]), use_kernel=False)
+        outs_p.append(out[0])
+    equal = torch.equal(outs_k[0], torch.stack(outs_p)) and all(
+        torch.equal(a, b[0]) for a, b in zip(st_k, st_p))
+    log(f"[parallel] _scan_hops (one stream of the preset, H={h}) against the plain band chain "
+        f"a hop: {'bit-equal' if equal else 'differs'}; {ms_k[0]:.2f} ms; launches {counts_k} "
+        f"| {card}")
+    if not equal:
+        raise AssertionError("the one-stream hop scan differs from the plain band chain")
 
 
 def parallel_paths(seed: int, card: str, launches: dict, device: str = "cuda") -> None:

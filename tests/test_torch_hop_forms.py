@@ -8,8 +8,9 @@ Bounds and why:
 - ``_hop_local_inputs`` against ``_hop_inputs_hoisted``: maxdiff == 0 on
   every operand, the micro-check the JAX suite pins between its own pair
   (tests/test_spectral.py).
-- ``_band_chain_scan`` against the band chain's plain version: bit-equal
-  (the same real operations in the same order, on complex tensors).
+- ``_band_chain_scan`` against ``band_chain_packed`` on the CPU, whose
+  wrapper takes the plain version there: bit-equal (both run kernel 4's
+  plain version on the same packed operands).
 - ``spectral_hop`` against JAX's: relative 1e-5 on the output, the bar the
   port's band chain is held to against JAX's scan (its complex ``abs``
   rounds otherwise), the MINSTD state equal.

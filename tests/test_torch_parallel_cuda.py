@@ -70,6 +70,27 @@ def test_spectral_hop_batched_kernel_bit_equal_to_the_plain_chain(dev):
     assert int(state.rng[0]) != 1 and bool((state.rng[1:] == 1).all())   # tf > 2: stream 0
 
 
+def test_spectral_hop_launches_the_kernel_bit_equal_to_the_plain_chain(dev):
+    """The one-stream hop (S = 1: the band chain's operands one float
+    wide) launches kernel 4 on the card and gives the plain chain's bits."""
+    cfg, audios, ends, ctl = _inputs(dev)
+    cur, prev = fid._analyse_cur_prev(cfg, audios, ends)
+    state = spectral.init_spectral_state(cfg, dev)
+    for i in range(ends.shape[1]):
+        before = kernels.LAUNCHES["band_chain"]
+        st_k, out_k = spectral.spectral_hop(cfg, state, cur[i, 0], prev[i, 0],
+                                            *(c[0] for c in ctl[:3]))
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["band_chain"] == before + 1
+        st_p, out_p = spectral.spectral_hop_batched(
+            cfg, tree_map(lambda x: x[None], state), cur[i, :1], prev[i, :1],
+            *(c[:1] for c in ctl[:3]), use_kernel=False)
+        assert torch.equal(out_k, out_p[0])
+        for a, b in zip(st_k, st_p):
+            assert torch.equal(a, b[0])
+        state = st_k
+
+
 def test_sharded_fidelity_step_bit_equal_at_world_size_one(dev, tmp_path):
     from bauklank_tpu_torch.parallel import shard_streams, stream_mesh
     from bauklank_tpu_torch.parallel.mesh import sharded_fidelity_step
