@@ -17,20 +17,21 @@ elementwise factors -> the prefix over hops -> the inverse MDFT and one
 overlap-add.  The carried state between chunks is (rot, last mapped
 spectrum, OLA tail).
 
-Each stage runs inside a ``torch.profiler.record_function`` range
-(``fast.analyse``, ``fast.hop_factors``, ``fast.rotation_scan``,
-``fast.synthesis``).  The JAX module's fused-MDFT A/B
+While a profiler records, each stage runs inside a ``record_function``
+range (``utils.metrics.span``: ``fast.analyse``, ``fast.hop_factors``,
+``fast.rotation_scan``, ``fast.synthesis``), and the carried state's
+update after them inside ``fast.carry``, so a profile splits the whole
+step by stage; a stage's constant tables are looked up (built, on first
+use) inside its range.  The JAX module's fused-MDFT A/B
 (``_use_fused_mdft``, off by default there) is not ported.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bauklank_tpu_torch.engine.config import StretchConfig
 from bauklank_tpu_torch.engine.params import StretchParams
@@ -39,6 +40,7 @@ from bauklank_tpu_torch.ops import formant as formant_ops
 from bauklank_tpu_torch.ops import framing, mdft, pitchmap, windows
 from bauklank_tpu_torch.ops.scan import associative_scan
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from bauklank_tpu_torch.utils.metrics import span, table_cache
 
 __all__ = [
     "StretchState",
@@ -78,7 +80,7 @@ def init_state(config: StretchConfig, device=DEFAULT_DEVICE) -> StretchState:
     return fresh_state(config, 1, resolve_device(device))
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _window_consts(block: int, interval: int, beta: float | None, device: torch.device):
     """(analysis window, synthesis window, band centre frequencies) on
     ``device``, built once per geometry."""
@@ -87,7 +89,7 @@ def _window_consts(block: int, interval: int, beta: float | None, device: torch.
     return tuple(torch.from_numpy(a).to(device) for a in (wa, ws, freqs))
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _lobe_alpha(block: int, interval: int, beta: float | None = None) -> float:
     """Gaussian model of the analysis window's spectral main lobe:
     |G(x bins)| ~= exp(-alpha x^2), calibrated at x = 1 bin (float32)."""
@@ -99,7 +101,7 @@ def _lobe_alpha(block: int, interval: int, beta: float | None = None) -> float:
     return float(np.float32(-np.log(max(g1 / g0, 1e-6))))
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _center_phase(bins: int, device: torch.device) -> torch.Tensor:
     """Zero-phase (frame-centre) referencing rotation e^{i pi (k+1/2)} =
     i (-1)^k: analysis spectra are rotated so the window's lobe is
@@ -125,8 +127,8 @@ def analyse(config: StretchConfig, audio: torch.Tensor, frame_ends: torch.Tensor
     batched MDFT: audio [S, C, T], frame_ends [S, H] -> [S, 2H, C, bins]
     (the H current frames first)."""
     block, interval = config.block, config.interval
-    wa, _, _ = _window_consts(block, interval, config.window_beta, audio.device)
-    with record_function("fast.analyse"):
+    with span("fast.analyse"):
+        wa, _, _ = _window_consts(block, interval, config.window_beta, audio.device)
         starts_cur = frame_ends.to(torch.int32) - block
         starts = torch.cat([starts_cur, starts_cur - interval], dim=1).contiguous()
         frames = frames_windowed(audio, starts, wa)                     # [S, 2H, C, block]
@@ -143,11 +145,11 @@ def hop_factors(config: StretchConfig, audio: torch.Tensor, frame_ends: torch.Te
     spectra, gain [S, 1, H, bins], reset [S, H, bins] bool)."""
     block, interval = config.block, config.interval
     dev = audio.device
-    _, _, band_f = _window_consts(block, interval, config.window_beta, dev)
     h = frame_ends.shape[1]
     specs = analyse(config, audio, frame_ends)                          # [S, 2H, C, bins]
 
-    with record_function("fast.hop_factors"):
+    with span("fast.hop_factors"):
+        _, _, band_f = _window_consts(block, interval, config.window_beta, dev)
         tf = params.transpose_factor[:, None]                           # [S, 1]
         limit = pitchmap.effective_tonality_limit(tf, params.tonality[:, None])
         pos, dfreq = pitchmap.source_positions(band_f, tf, limit, block)   # [S, bins]
@@ -199,7 +201,7 @@ def hop_factors(config: StretchConfig, audio: torch.Tensor, frame_ends: torch.Te
             reset = (e_cur > thresh * (e_prev + 1e-12)) & (e_cur > 1e-10)
         else:
             reset = torch.zeros(v.shape, dtype=torch.bool, device=dev)
-    return v, cur_m, gain[:, None], reset
+        return v, cur_m, gain[:, None], reset
 
 
 def _combine(a, b):
@@ -231,14 +233,15 @@ def process_chunk(config: StretchConfig, state: StretchState, audio: torch.Tenso
     out [S, C, H * interval] float32.  Inactive streams keep updating
     their state and emit silence."""
     v, cur_m, gain, reset = hop_factors(config, audio, frame_ends, params, state.prev_cur)
-    with record_function("fast.rotation_scan"):
+    with span("fast.rotation_scan"):
         rot_seq = rotation_scan(state.rot, v, reset)                    # [S, H, bins]
     emit, new_tail = synthesis(config, rot_seq, cur_m, gain, state.ola_tail, params.active)
-    new_state = StretchState(
-        rot=pitchmap.unit(rot_seq[:, -1]),
-        prev_cur=cur_m[:, :, -1].contiguous(),
-        ola_tail=new_tail,
-    )
+    with span("fast.carry"):
+        new_state = StretchState(
+            rot=pitchmap.unit(rot_seq[:, -1]),
+            prev_cur=cur_m[:, :, -1].contiguous(),
+            ola_tail=new_tail,
+        )
     return new_state, emit
 
 
@@ -248,9 +251,9 @@ def synthesis(config: StretchConfig, rot_seq: torch.Tensor, cur_m: torch.Tensor,
     [S, H, bins], cur_m [S, C, H, bins], gain [S, 1, H, bins], ola_tail
     [S, C, block], active [S] -> (emit [S, C, H * interval], new tail)."""
     block, interval = config.block, config.interval
-    _, ws, _ = _window_consts(block, interval, config.window_beta, cur_m.device)
     h = cur_m.shape[2]
-    with record_function("fast.synthesis"):
+    with span("fast.synthesis"):
+        _, ws, _ = _window_consts(block, interval, config.window_beta, cur_m.device)
         out_spec = mdft.cmul(rot_seq[:, None], cur_m) * gain            # [S, C, H, bins]
         out_spec = mdft.cmul(out_spec, torch.conj(_center_phase(config.bins, cur_m.device)))
         out_frames = mdft.imdft(out_spec, block) * ws                   # [S, C, H, block]

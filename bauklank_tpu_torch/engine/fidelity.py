@@ -12,10 +12,12 @@ pool step (:func:`batched_fidelity_chunk`) runs:
    the time prediction and ``u12``, and runs the band chain (kernel 4);
 4. the batched inverse MDFT and the overlap-add with the carried tail.
 
-Each stage runs inside a ``torch.profiler.record_function`` range
-(``fidelity.analyse``, ``fidelity.chain_inputs``, ``fidelity.hop_loop``,
-``fidelity.synthesis``), so a profile splits the step's host and device
-time by stage.
+While a profiler records, each stage runs inside a ``record_function``
+range (``utils.metrics.span``: ``fidelity.analyse``,
+``fidelity.chain_inputs``, ``fidelity.hop_loop``, ``fidelity.synthesis``),
+and the carried state's update after them (inactive streams keep theirs)
+inside ``fidelity.carry``, so a profile splits the whole step's host and
+device time by stage.
 
 The host side (:func:`hop_frame_ends`) replicates the worklet's float time
 accumulation bit-for-bit, as the JAX package does.
@@ -33,11 +35,8 @@ the same step fed from a rolling input ring with constant frame ends.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bauklank_tpu_torch.engine.spectral import (
     SpectralConfig,
@@ -55,6 +54,7 @@ from bauklank_tpu_torch.kernels.frames import frames_windowed
 from bauklank_tpu_torch.ops import framing, mdft
 from bauklank_tpu_torch.ops.mdft import unit_phase
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
+from bauklank_tpu_torch.utils.metrics import span, table_cache
 from bauklank_tpu_torch.utils.tree import tree_map
 
 __all__ = [
@@ -111,7 +111,7 @@ def hop_frame_ends(
     return ie_by_q[(hops * cfg.interval) // QUANTUM].astype(np.int32)
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def _consts(cfg: SpectralConfig, device: torch.device, zero_head: int = 0):
     """(window [block] f32, analysis reference rotation [bands] c64) on
     ``device``, built once per geometry; ``zero_head`` zeroes the first
@@ -243,22 +243,21 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
     ((new_spec_state, new_tails), emit [S, C, H * interval]).  Inactive
     streams keep their state frozen and emit silence."""
     spec_states, _ = states
-    with record_function("fidelity.analyse"):
+    with span("fidelity.analyse"):
         cur, prev = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
-    with record_function("fidelity.chain_inputs"):
+    with span("fidelity.chain_inputs"):
         xs, (rng_final, fv, fw) = chain_inputs_hops(
             cfg, spec_states, cur, prev, tf, mult, limit,
             formant_factor, formant_compensation, formant_base, deterministic)
-    with record_function("fidelity.hop_loop"):
+    with span("fidelity.hop_loop"):
         outs = _hop_loop(cfg, spec_states.prev_output, xs)          # [S, H, C, B]
-
-    new_spec = SpectralState(
-        prev_output=outs[:, -1],
-        prev_pred_energy=xs["pred_energy"][-1],
-        rng=rng_final,
-        f_value_ema=fv,
-        f_weighted_ema=fw,
-    )
+        new_spec = SpectralState(
+            prev_output=outs[:, -1],
+            prev_pred_energy=xs["pred_energy"][-1],
+            rng=rng_final,
+            f_value_ema=fv,
+            f_weighted_ema=fw,
+        )
     return _finish(cfg, outs, new_spec, states, active)
 
 
@@ -268,17 +267,18 @@ def _finish(cfg: SpectralConfig, outs, new_spec: SpectralState, states, active):
     stream is active, ``states`` (the step's input) frozen where not.
     Returns ((spec_state, tails), emit [S, C, H * interval])."""
     spec_states, tails = states
-    with record_function("fidelity.synthesis"):
+    with span("fidelity.synthesis"):
         frames = synthesise_frames(cfg, outs)                       # [S, C, H, block]
         emit, new_tails = _ola_emit(cfg, frames, tails, active, outs.shape[1])
 
-    keep = active > 0
+    with span("fidelity.carry"):
+        keep = active > 0
 
-    def freeze(new, old):
-        return torch.where(keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+        def freeze(new, old):
+            return torch.where(keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
-    new_spec = SpectralState(*[freeze(a, b) for a, b in zip(new_spec, spec_states)])
-    return (new_spec, freeze(new_tails, tails)), emit
+        new_spec = SpectralState(*[freeze(a, b) for a, b in zip(new_spec, spec_states)])
+        return (new_spec, freeze(new_tails, tails)), emit
 
 
 def batched_fidelity_chunk_scan(cfg: SpectralConfig, states, audios, ends, tf, mult, limit,

@@ -31,7 +31,6 @@ deterministic regime with ``BAUKLANK_CHAINFETCH`` set, kernel 7
 
 from __future__ import annotations
 
-import functools
 import os
 from typing import NamedTuple
 
@@ -44,6 +43,7 @@ from bauklank_tpu_torch.ops import mdft
 from bauklank_tpu_torch.ops.gather import chainfetch, frac_gather
 from bauklank_tpu_torch.ops.mdft import unit_phase
 from bauklank_tpu_torch.ops.scan import associative_scan
+from bauklank_tpu_torch.utils.metrics import table_cache
 from bauklank_tpu_torch.utils.tree import tree_map
 
 __all__ = [
@@ -75,7 +75,7 @@ def fft_size_for(block: int) -> int:
     return best
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def blob_window(block: int, interval: int) -> np.ndarray:
     """The blob's exact analysis/synthesis window (identical pair):
     periodic-centered Kaiser with the heuristic-optimal bandwidth law,
@@ -162,7 +162,7 @@ MINSTD_M = 2147483647  # 2^31 - 1 (Mersenne prime)
 MINSTD_A = 48271
 
 
-@functools.lru_cache(maxsize=16)
+@table_cache(maxsize=16)
 def _minstd_powers(n_draws: int) -> np.ndarray:
     """[n_draws] int64: 48271^(k+1) mod (2^31-1) for k = 0..n_draws-1."""
     out = np.empty(n_draws, np.int64)
@@ -173,7 +173,7 @@ def _minstd_powers(n_draws: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _minstd_hop_powers(n_draws: int, n_hops: int) -> np.ndarray:
     """[n_hops + 1] int64: (48271^n_draws)^h mod (2^31-1) for h = 0..H —
     the per-hop seed advance (seed_h = s * (a^n)^h)."""
@@ -186,7 +186,7 @@ def _minstd_hop_powers(n_draws: int, n_hops: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _minstd_tables(n_draws: int, n_hops: int, device: torch.device):
     """(:func:`_minstd_powers`, :func:`_minstd_hop_powers`) on ``device``."""
     return (torch.from_numpy(_minstd_powers(n_draws)).to(device),
@@ -463,7 +463,7 @@ def _shift(a: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([a[..., k:], torch.zeros_like(a[..., :k])], dim=-1)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _rotation(cfg: SpectralConfig, device: torch.device) -> torch.Tensor:
     """e^{i 2 pi (b + 1/2) interval / fft}: re-references a spectrum one
     interval forward (built once per geometry and device)."""

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from bauklank_tpu_torch.utils.metrics import table_cache
+
 __all__ = ["mdft", "imdft", "num_bands", "band_freqs", "cmul", "cabs", "unit_phase"]
 
 
@@ -59,7 +61,7 @@ def unit_phase(phase: np.ndarray, device) -> torch.Tensor:
     return torch.complex(torch.from_numpy(c), torch.from_numpy(s)).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@table_cache(maxsize=32)
 def _twiddles(n: int, device: torch.device):
     """(pre, w, 0.5 / w, post) of an N-point transform on ``device``,
     built once on the host: pre = e^{-i pi m/M}, w = e^{-2i pi (k+1/2)/N},

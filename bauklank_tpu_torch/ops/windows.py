@@ -9,9 +9,9 @@ rounding whatever the window family.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
+
+from bauklank_tpu_torch.utils.metrics import table_cache
 
 __all__ = ["kaiser", "kaiser_beta_for_overlap", "pr_window_pair", "ola_norm"]
 
@@ -24,7 +24,7 @@ def kaiser_beta_for_overlap(block: int, interval: int) -> float:
     return float(np.pi * np.sqrt(max(b * b / 4.0 - 1.0, 0.0)))
 
 
-@functools.lru_cache(maxsize=64)
+@table_cache(maxsize=64)
 def _kaiser_cached(n: int, beta: float) -> np.ndarray:
     # symmetric Kaiser sampled at k + 0.5 ("periodic-centered"): frame
     # centres at (block - 1) / 2 + 0.5, no zero endpoints

@@ -191,5 +191,5 @@ class LivePool:
                                             StretchParams.unpack(dev_packed, 0))
         self.out_pos += n
         result = out.cpu().numpy()
-        self.timer.tick(self.capacity * n)
+        self.timer.tick(self.capacity * n, n / self.sample_rate)
         return result

@@ -14,6 +14,17 @@ Per step the host builds one packed ``[S, H + 11]`` float32 array (frame
 ends, the seven StretchParams fields, gain and pan ramps) and copies it
 to the device once.
 
+While a profiler records, :meth:`StreamPool.step` runs under a
+``pool.step`` range (``utils.metrics.span``), and inside it
+``pool.pack`` (the packed array), the engine's own ranges (``fast.*`` or
+``fidelity.*``) and ``pool.fetch`` (the wait for the device and the
+master's copy to the host; also around :meth:`drain`); the packed
+array's copy, the tracks' copy and the mixdown are ``pool.step``'s own.
+:meth:`StreamPool.metrics` carries the pool's counters beside the step
+times: ``steps``, ``late``, ``minstd_steps``, ``formant_steps``,
+``audio_uploads`` and the process-wide ``table_builds``; the server's
+``/status`` and heartbeat publish them.
+
 ``step(fetch="pipeline")`` overlaps the master's copy to the host with
 the next steps: each master is copied into one of ``pipeline_depth + 1``
 pinned host buffers with ``non_blocking=True`` and an event recorded
@@ -32,7 +43,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bauklank_tpu_torch.engine.batched import (
     batched_process_chunk,
@@ -49,10 +59,10 @@ from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-from bauklank_tpu_torch.utils.metrics import StepTimer
+from bauklank_tpu_torch.utils.metrics import StepTimer, span, table_builds
 from bauklank_tpu_torch.utils.tree import tree_map
 
-__all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS"]
+__all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS", "COUNTERS"]
 
 SCHEDULE_LOOKAHEAD_SEC = 0.1  # reference: app/multi/app.mjs:494
 RAMP_SEC = 0.03               # reference: app/multi/app.mjs:454
@@ -76,6 +86,9 @@ _TIMEMAP_KEYS = {
 _NUMERIC_KEYS = (_TIMEMAP_KEYS | {"volume", "volumePercent", "pan"}) - {
     "active", "formantCompensation",
 }
+
+# the counters of StreamPool.metrics() that a UnifiedPool sums over its buckets
+COUNTERS = ("steps", "late", "minstd_steps", "formant_steps", "audio_uploads")
 
 
 @dataclasses.dataclass
@@ -207,6 +220,10 @@ class StreamPool:
         self._pinned: list[torch.Tensor] = []  # ring of pipeline_depth + 1 buffers
         self._pinned_next = 0
         self.timer = StepTimer(sample_rate)
+        # decisions of the host about its steps, counted for metrics()
+        self.minstd_steps = 0     # fidelity steps outside the deterministic regime
+        self.formant_steps = 0    # steps that ran the formant chain
+        self.audio_uploads = 0    # copies of every track to the device
 
     # ------------------------------------------------------------- loading
     def load_track(self, slot: str, channel_arrays) -> int:
@@ -279,6 +296,7 @@ class StreamPool:
     def _device_audio(self) -> torch.Tensor:
         if self._audio_dev is None:
             self._audio_dev = torch.from_numpy(self._audio_host).to(self.device)
+            self.audio_uploads += 1
         return self._audio_dev
 
     # ------------------------------------------------------------- control
@@ -394,37 +412,43 @@ class StreamPool:
         ``fetch="pipeline"`` starts the master's copy to the host and
         returns, as numpy, the master of ``pipeline_depth`` steps ago
         (None while the pipeline fills); :meth:`drain` returns the rest."""
-        self.timer.start()
-        h = self.hops_per_step
-        with record_function("pool.pack"):
-            packed = self._packed()
-        formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
-        dev_packed = torch.from_numpy(packed).to(self.device)
-        if self.engine == "fidelity":
-            # host-side formant gating, as below: the formant chain runs
-            # only in a step where some voice uses a formant control
-            scfg = self.scfg._replace(formants=True) if formants else self.scfg
-            self.states, master, streams = _pool_step_fidelity(
-                scfg, self.states, self._device_audio(), dev_packed,
-                _deterministic(packed[:, h + 1], scfg.interval))
-        else:
-            # host-side formant gating: when no voice uses formant controls
-            # this step, run the step without the formant chain (same state;
-            # the reference engine gates the same way)
-            cfg = self.config
-            if cfg.formants and not formants:
-                cfg = formants_off(cfg)
-            self.states, master, streams = _pool_step(
-                cfg, self.states, self._device_audio(), dev_packed)
-        self.out_pos += h * self._sizes[1]
-        self._last_streams = streams
-        if fetch == "pipeline":
-            self._fetch_q.append(self._start_fetch(master))
-            master = (self._finish_fetch(*self._fetch_q.popleft())
-                      if len(self._fetch_q) > self.pipeline_depth else None)
-        elif fetch:
-            master = master.cpu().numpy()
-        self.timer.tick(self.capacity * h * self._sizes[1])
+        with span("pool.step"):
+            self.timer.start()
+            h, interval = self.hops_per_step, self._sizes[1]
+            with span("pool.pack"):
+                packed = self._packed()
+            formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
+            dev_packed = torch.from_numpy(packed).to(self.device)
+            if self.engine == "fidelity":
+                # host-side formant gating, as below: the formant chain runs
+                # only in a step where some voice uses a formant control
+                scfg = self.scfg._replace(formants=True) if formants else self.scfg
+                deterministic = _deterministic(packed[:, h + 1], scfg.interval)
+                self.minstd_steps += not deterministic
+                self.formant_steps += scfg.formants
+                self.states, master, streams = _pool_step_fidelity(
+                    scfg, self.states, self._device_audio(), dev_packed, deterministic)
+            else:
+                # host-side formant gating: when no voice uses formant controls
+                # this step, run the step without the formant chain (same state;
+                # the reference engine gates the same way)
+                cfg = self.config
+                if cfg.formants and not formants:
+                    cfg = formants_off(cfg)
+                self.formant_steps += cfg.formants
+                self.states, master, streams = _pool_step(
+                    cfg, self.states, self._device_audio(), dev_packed)
+            self.out_pos += h * interval
+            self._last_streams = streams
+            if fetch == "pipeline":
+                with span("pool.fetch"):
+                    self._fetch_q.append(self._start_fetch(master))
+                    master = (self._finish_fetch(*self._fetch_q.popleft())
+                              if len(self._fetch_q) > self.pipeline_depth else None)
+            elif fetch:
+                with span("pool.fetch"):
+                    master = master.cpu().numpy()
+            self.timer.tick(self.capacity * h * interval, h * interval / self.sample_rate)
         return master, streams
 
     def _start_fetch(self, master: torch.Tensor):
@@ -455,7 +479,8 @@ class StreamPool:
     def drain(self) -> list[np.ndarray]:
         """The masters still in the fetch pipeline, in dispatch order (call
         after the last ``step(fetch="pipeline")`` so no audio is lost)."""
-        out = [self._finish_fetch(*f) for f in self._fetch_q]
+        with span("pool.fetch"):
+            out = [self._finish_fetch(*f) for f in self._fetch_q]
         self._fetch_q.clear()
         return out
 
@@ -470,5 +495,15 @@ class StreamPool:
         return analyze_signal(slot, sig, self.sample_rate, n_buckets)
 
     def metrics(self) -> dict:
-        """Rolling serving metrics: step p50/p99 latency + aggregate RTF."""
-        return self.timer.snapshot()
+        """Rolling serving metrics (step p50/p99 latency, aggregate RTF)
+        and the counters since the pool was built: ``steps``; ``late``,
+        steps that took longer than the audio they render (H x interval /
+        sample rate); ``minstd_steps``, fidelity steps with a voice past
+        time factor 2 (the MINSTD regime); ``formant_steps``, steps that
+        ran the formant chain; ``audio_uploads``, copies of every track
+        to the device (one after each batch of track changes); and
+        ``table_builds``, constant tables built in the whole process
+        (``utils.metrics.table_builds``), not by this pool alone."""
+        return dict(self.timer.snapshot(), minstd_steps=self.minstd_steps,
+                    formant_steps=self.formant_steps, audio_uploads=self.audio_uploads,
+                    table_builds=table_builds())

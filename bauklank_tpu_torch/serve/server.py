@@ -43,6 +43,19 @@ released.
 Log style follows the reference's greppable taxonomy (🔎 scan, 🧪 probe,
 📟 serial, 💓 heartbeat, 📡 status) with HH:MM:SS.mmm timestamps and a
 startup-vs-run log-level switch (:186-209, :927-947).
+
+``/status`` and the heartbeat publish the pool's ``metrics()``: beside
+the rolling step p50/p99 and aggregate real-time factor, counters since
+the pool was built.  ``steps``; ``late``, steps that took longer than
+the audio they render (hops x interval / sample rate: an underrun where
+the output plays as it renders); ``minstd_steps``, fidelity steps with a
+voice past time factor 2 (rate under 0.5: the MINSTD regime, slower);
+``formant_steps``, steps that ran the formant chain; ``audio_uploads``,
+copies of every track to the card (one after each batch of track
+changes); ``table_builds``, constant tables built in the whole process,
+which should stop rising after a pool's first steps.  A ``UnifiedPool``
+reports its own quanta's ``steps`` and ``late``, its ``buckets``, their
+counters summed under ``bucket_counters``, and ``table_builds``.
 """
 
 from __future__ import annotations

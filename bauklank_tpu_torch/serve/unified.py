@@ -31,9 +31,9 @@ from bauklank_tpu_torch.engine.config import StretchConfig
 from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.serve.livepool import LivePool
-from bauklank_tpu_torch.serve.pool import StreamPool
+from bauklank_tpu_torch.serve.pool import COUNTERS, StreamPool
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
-from bauklank_tpu_torch.utils.metrics import StepTimer
+from bauklank_tpu_torch.utils.metrics import StepTimer, table_builds
 
 __all__ = ["UnifiedPool"]
 
@@ -329,7 +329,7 @@ class UnifiedPool:
             master += b.fifo[:, :n]
             b.fifo = b.fifo[:, n:]
         self.out_pos += n
-        self.timer.tick(max(1, len(self.voices)) * n)
+        self.timer.tick(max(1, len(self.voices)) * n, n / self.sample_rate)
         return master
 
     def step(self, fetch: bool = True):
@@ -351,11 +351,23 @@ class UnifiedPool:
         return analyze_signal(slot, sig, self.sample_rate, n_buckets)
 
     def metrics(self) -> dict:
+        """The render's step times and late quanta (``steps`` counts
+        :meth:`render` calls), the buckets, the buckets' own counters
+        summed (``bucket_counters``: ``StreamPool.metrics``'s; a live
+        bucket has only ``steps`` and ``late``) and the process-wide
+        ``table_builds``."""
         m = self.timer.snapshot()
         m["buckets"] = {
             f"{k[0]}:{k[1]}/{k[2]}": {"voices": len(b.members), "capacity": b.pool.capacity}
             for k, b in self.buckets.items()
         }
+        sums = dict.fromkeys(COUNTERS, 0)
+        for b in self.buckets.values():
+            got = b.pool.metrics()
+            for k in COUNTERS:
+                sums[k] += got.get(k, 0)
+        m["bucket_counters"] = sums
+        m["table_builds"] = table_builds()
         return m
 
     def voice_config(self, slot: str) -> dict:

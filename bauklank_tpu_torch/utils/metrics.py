@@ -1,23 +1,40 @@
-"""Observability: step timing, real-time factor, rate meters.
+"""Observability: step timing, real-time factor, late steps, rate
+meters, the program's profiler ranges, and the count of constant tables
+built.
 
-Copied from ``bauklank_tpu/utils/metrics.py``; ``profile_trace`` runs
-``torch.profiler`` where the JAX module runs ``jax.profiler``.
+From ``bauklank_tpu/utils/metrics.py``, without its ``profile_trace``
+exporter: the port's ranges (:func:`span`) are read by whoever runs
+``torch.profiler`` around the steps.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from collections import deque
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-__all__ = ["StepTimer", "RateMeter", "profile_trace"]
+__all__ = ["StepTimer", "RateMeter", "span", "table_cache", "table_builds"]
+
+_NO_SPAN = contextlib.nullcontext()
+_TABLE_CACHES: list = []
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else a context that does nothing: a range entered
+    with no profiler still costs microseconds on the hot path."""
+    return record_function(name) if torch._C._autograd._profiler_enabled() else _NO_SPAN
 
 
 class StepTimer:
-    """Rolling per-step latency stats + aggregate real-time factor."""
+    """Rolling per-step latency stats + aggregate real-time factor, and
+    the steps that took longer than the audio they render (``late``: an
+    underrun where the output plays as it is rendered)."""
 
     def __init__(self, sample_rate: float, window: int = 512) -> None:
         self.sample_rate = float(sample_rate)
@@ -25,25 +42,21 @@ class StepTimer:
         self.samples = deque(maxlen=window)
         self.total_steps = 0
         self.total_samples = 0
+        self.late = 0
         self._t0: float | None = None
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        # callers that don't know the sample count use tick() instead
-        return False
-
-    def tick(self, out_samples: int) -> float:
+    def tick(self, out_samples: int, deadline_s: float | None = None) -> float:
         """Record one step that produced ``out_samples`` *per-stream-summed*
-        output samples; returns its duration."""
+        output samples; a step longer than ``deadline_s`` (the seconds of
+        audio it renders) counts as late.  Returns its duration."""
         dt = time.perf_counter() - self._t0 if self._t0 is not None else 0.0
         self._t0 = None
         self.durations.append(dt)
         self.samples.append(out_samples)
         self.total_steps += 1
         self.total_samples += out_samples
+        if deadline_s is not None and dt > deadline_s:
+            self.late += 1
         return dt
 
     def start(self) -> None:
@@ -68,6 +81,7 @@ class StepTimer:
     def snapshot(self) -> dict:
         return {
             "steps": self.total_steps,
+            "late": self.late,
             "p50_ms": round(self.p50_ms, 3),
             "p99_ms": round(self.p99_ms, 3),
             "rtf": round(self.rtf, 1),
@@ -96,16 +110,21 @@ class RateMeter:
             self.stamps.popleft()
 
 
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """``torch.profiler`` trace around a region, written under ``log_dir``
-    by the TensorBoard trace handler (``*.pt.trace.json``, also readable in
-    Perfetto): the host's ops and, where a CUDA device is visible, the
-    card's kernels."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+def table_cache(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a builder of a constant table
+    (windows, twiddles, rotations, MINSTD powers), counted by
+    :func:`table_builds`."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+        _TABLE_CACHES.append(cached)
+        return cached
+    return wrap
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
-        yield
+
+def table_builds() -> int:
+    """Constant tables built so far in this process, by every pool and
+    caller in it: the summed cache misses of the :func:`table_cache`
+    builders.  A count that rises while a pool steps means tables built
+    (and copied to the device) on the hot path: a geometry or device the
+    caches do not hold."""
+    return sum(f.cache_info().misses for f in _TABLE_CACHES)

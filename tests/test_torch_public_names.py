@@ -1,11 +1,9 @@
 """PyTorch port, the small public names the JAX package has beside its
 engines: ``engine.batched.batched_step_jit``, ``ops.framing.ola_chunks``,
-``ops.mdft.num_bands`` / ``band_freqs``, ``utils.metrics.profile_trace``
-and ``serve.pool.RAMP_SEC``, each against its JAX counterpart."""
+``ops.mdft.num_bands`` / ``band_freqs`` and ``serve.pool.RAMP_SEC``, each
+against its JAX counterpart."""
 
 from __future__ import annotations
-
-import json
 
 import numpy as np
 
@@ -18,13 +16,11 @@ from bauklank_tpu.engine import StretchParams as JParams
 from bauklank_tpu.ops import framing as jframing
 from bauklank_tpu.ops import mdft as jmdft
 from bauklank_tpu.serve import pool as jpool
-from bauklank_tpu.utils import metrics as jmetrics
 from bauklank_tpu_torch.engine import StretchConfig, StretchParams
 from bauklank_tpu_torch.engine import batched
 from bauklank_tpu_torch.engine.offline import frame_ends_for
 from bauklank_tpu_torch.ops import framing, mdft
 from bauklank_tpu_torch.serve import pool
-from bauklank_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
 SR = 44100.0
@@ -71,20 +67,6 @@ def test_num_bands_and_band_freqs_equal():
         got, want = mdft.band_freqs(block), jmdft.band_freqs(block)
         assert got.dtype == want.dtype == np.float32
         np.testing.assert_array_equal(got, want)
-
-
-def test_profile_trace_writes_a_trace(tmp_path):
-    """Both packages write a trace of the region under ``log_dir``; the
-    port's is a Chrome trace that lists the region's ops."""
-    with metrics.profile_trace(str(tmp_path / "torch")):
-        torch.ones(64) * 2.0
-    files = list((tmp_path / "torch").glob("*.pt.trace.json"))
-    assert len(files) == 1
-    names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
-    assert "aten::mul" in names
-    with jmetrics.profile_trace(str(tmp_path / "jax")):
-        (jnp.ones(64) * 2.0).block_until_ready()
-    assert list((tmp_path / "jax").rglob("*.xplane.pb"))
 
 
 def test_ramp_sec_equal():
