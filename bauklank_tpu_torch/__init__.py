@@ -5,8 +5,9 @@ The package mirrors ``bauklank_tpu``'s layout (``engine/``, ``ops/``,
 ``utils/``) so each ported module
 sits at the same path as its JAX counterpart, which stays in the
 repository as the reference it is tested against.  Plain tensor code is
-PyTorch; the seven kernels (one for each ``pl.pallas_call`` of the JAX
-package) are CUDA C++ for Hopper (``csrc/*.cu``), built at first use and
+PyTorch; the eight kernels (one for each ``pl.pallas_call`` of the JAX
+package, and the fidelity step's smoother pair, where JAX runs
+``lax.associative_scan``) are CUDA C++ for Hopper (``csrc/*.cu``), built at first use and
 bound with ``ctypes`` (``kernels/``).  A CPU tensor takes each kernel's
 plain PyTorch version.  Entry points run on the card unless the caller
 passes ``device="cpu"``.  As in the JAX package, the pools and the node

@@ -5,9 +5,9 @@ pool step (:func:`batched_fidelity_chunk`) runs:
 
 1. the windowed cur/prev frame fetch (kernel 1) and a batched MDFT;
 2. ``engine.spectral.chain_inputs_hops``: every hop-local input of the
-   chunk in one batched pass (peaks map via kernel 2, gathers via
-   kernel 3 or the fused kernel 7, the formant chain where a voice asks
-   for it);
+   chunk in one batched pass (the smoother pair via kernel 8, the peaks
+   map via kernel 2, gathers via kernel 3 or the fused kernel 7, the
+   formant chain where a voice asks for it);
 3. a Python loop over hops whose body rotates the carried spectrum, forms
    the time prediction and ``u12``, and runs the band chain (kernel 4);
 4. the batched inverse MDFT and the overlap-add with the carried tail.

@@ -24,9 +24,13 @@ tensors, flattened to ``N = H * S`` rows for the peaks map and the
 gathers.  The TPU forms of the JAX module (one-hot block gathers, the
 MXU rank count, the uint32 limb MINSTD) are replaced by what they
 compute: plain indexing, exact integer counts, int64 modular products.
-The row gathers are kernel 3 (``frac_gather``, two launches) or, in the
-deterministic regime with ``BAUKLANK_CHAINFETCH`` set, kernel 7
-(``chainfetch``, one fused launch); both give the same bits.
+The smoothing of step 2 (two chained bidirectional smoothers: four
+affine scans) is kernel 8 (``smooth_pair``, one launch), the peaks map's
+prefix sums kernel 2 (``comp_cumsum``), and the row gathers kernel 3
+(``frac_gather``, two launches) or, in the deterministic regime with
+``BAUKLANK_CHAINFETCH`` set, kernel 7 (``chainfetch``, one fused launch);
+both give the same bits.  The formant envelope's smoothing is kernel 8
+too, with one coefficient a row.
 """
 
 from __future__ import annotations
@@ -39,10 +43,14 @@ import torch
 
 from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum
+from bauklank_tpu_torch.kernels.smooth import smooth_pair
+# the plain smoother (kernel 8's plain version chains two), held against
+# JAX by the tests under the name it had here
+from bauklank_tpu_torch.kernels.smooth import (  # noqa: F401
+    smooth_bidirectional as _smooth_bidirectional)
 from bauklank_tpu_torch.ops import mdft
 from bauklank_tpu_torch.ops.gather import chainfetch, frac_gather
 from bauklank_tpu_torch.ops.mdft import unit_phase
-from bauklank_tpu_torch.ops.scan import associative_scan
 from bauklank_tpu_torch.utils.metrics import table_cache
 from bauklank_tpu_torch.utils.tree import tree_map
 
@@ -220,41 +228,6 @@ def _minstd_steps(seq: torch.Tensor, time_factor: torch.Tensor):
     return torch.where(use, dd_rand, bts), torch.where(use, du_rand, bts)
 
 
-# ------------------------------------------------------- smoothing (scan)
-def _affine_scan(a: torch.Tensor, b: torch.Tensor):
-    """Inclusive scan of y_k = a_k y_{k-1} + b_k along the last axis, in
-    JAX's ``lax.associative_scan`` order (the same combine tree, so the
-    same roundings) with compose((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2)."""
-    def compose(x, y):
-        (a1, b1), (a2, b2) = x, y
-        return [a1 * a2, a2 * b1 + b2]
-
-    return tuple(associative_scan(compose, [a, b], dim=-1))
-
-
-def _smooth_bidirectional(e: torch.Tensor, coef, carry: torch.Tensor):
-    """The blob's two-pass one-pole smoother (backward then forward) with
-    the carry threaded between passes: y_b = y_prev + coef (e_b - y_prev)
-    as two affine scans.  e [..., B] -> (smoothed [..., B], carry [...]).
-    ``coef``: a Python float, whose ``1 - coef`` is taken in float64 and
-    then rounded, or a tensor over the leading axes (one coefficient per
-    row), whose ``1 - coef`` is taken in float32; both as in JAX."""
-    if isinstance(coef, (float, int)):
-        a = torch.full_like(e, float(np.float32(1.0 - coef)))
-        cf = torch.full_like(e, float(np.float32(coef)))
-    else:
-        cf = coef.to(e.dtype)[..., None].expand(e.shape)
-        a = 1.0 - cf
-
-    def affine(vals, c0):
-        aa, bb = _affine_scan(a, cf * vals)
-        return aa * c0[..., None] + bb
-
-    bwd = affine(e.flip(-1), carry).flip(-1)
-    fwd = affine(bwd, bwd[..., 0])
-    return fwd, fwd[..., -1]
-
-
 # ------------------------------------------------------------ peaks map
 def _comp_cumsum(x: torch.Tensor):
     """Compensated cumulative sum along axis 1 of x [N, B, K] ->
@@ -409,8 +382,8 @@ def _formant_gain_from_width(cfg: SpectralConfig, env_e, width, active, mult, li
     h, s_n = width.shape
     env = torch.sqrt(env_e)
     coef = 1.0 / (width * 0.5 + 1.0)
-    sm, carry = _smooth_bidirectional(env, coef, torch.zeros_like(width))
-    sm, _ = _smooth_bidirectional(sm, coef, carry)
+    sm = smooth_pair(env.reshape(h * s_n, b_n).contiguous(), coef.reshape(h * s_n))
+    sm = sm.reshape(h, s_n, b_n)
     freq = (torch.arange(b_n, dtype=torch.float32, device=env_e.device) + 0.5) / fft
     col = lambda x: x[:, None]
     # compensation: look up in transpose-mapped space (undoes the shift)
@@ -568,8 +541,7 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
     energy_all = torch.sum(torch.square(torch.abs(cur)), dim=2)  # [H, S, B]
     coef = 1.0 / (0.5 * (cfg.fft / cfg.interval) + 1.0)
     e_flat = energy_all.reshape(n, b_n)
-    sm, carry = _smooth_bidirectional(e_flat, coef, torch.zeros(n, device=dev))
-    sm, _ = _smooth_bidirectional(sm, coef, carry)
+    sm = smooth_pair(e_flat, coef)
     mult_n = mult[None].expand(h, s_n).reshape(n)
     limit_n = limit[None].expand(h, s_n).reshape(n)
     ib_m, gr_m = _find_peaks_map_batched(e_flat, sm, mult_n, limit_n, b_n, cfg.fft)

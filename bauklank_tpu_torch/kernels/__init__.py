@@ -1,10 +1,13 @@
 """Hand-written Hopper kernels of both engines, with their wrappers.
 
 Each kernel module holds the wrapper (``frames_windowed``,
-``comp_cumsum``, ``frac_gather`` or, on the fused route, ``chainfetch``,
-and ``band_chain`` for the fidelity step; ``frames_windowed`` and
-``banded_interp`` for the fast one; ``pallas_gather``, which no step
-calls) and its plain PyTorch version (``*_ref``, same signature).  A wrapper checks its operands,
+``smooth_pair``, ``comp_cumsum``, ``frac_gather`` or, on the fused route,
+``chainfetch``, and ``band_chain`` for the fidelity step;
+``frames_windowed`` and ``banded_interp`` for the fast one;
+``pallas_gather``, which no step calls) and its plain PyTorch version
+(``*_ref``, same signature).  ``smooth_pair`` (kernel 8, the smoother
+pair of stage 2 and of a formant voice's envelope) replaces no TPU
+kernel: JAX runs it as ``lax.associative_scan``.  A wrapper checks its operands,
 sends a CPU tensor to the plain version, and launches the CUDA kernel on
 a CUDA tensor, raising on any launch error; it never falls back.
 :data:`LAUNCHES` counts kernel launches, one per launch and nowhere else,
@@ -18,7 +21,7 @@ import torch
 __all__ = ["LAUNCHES", "reset_launches", "on_cuda", "stream_of", "require"]
 
 LAUNCHES = {"frames_windowed": 0, "comp_cumsum": 0, "frac_gather": 0, "band_chain": 0,
-            "banded_interp": 0, "pallas_gather": 0, "chainfetch": 0}
+            "banded_interp": 0, "pallas_gather": 0, "chainfetch": 0, "smooth_pair": 0}
 
 
 def reset_launches() -> None:

@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: every function returns cudaGetLastError() as an int and
 # takes the CUDA stream as its last argument
 SIGNATURES = {
@@ -47,6 +48,7 @@ SIGNATURES = {
     "bk_banded_interp_c": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "bk_root_ratio_check": (_P, _I, _I, _P, _P),
     "bk_band_step_cycles": (_P, _P),
+    "bk_smooth_pair": (_P, _P, _P, _F, _F, _P, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -6,7 +6,7 @@
 Phases (any failure raises and exits non-zero without the result line):
 
 1. device: the card's name and power limit, TF32 off;
-2. build the seven CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
+2. build the eight CUDA kernels from ``bauklank_tpu_torch/csrc`` (timed);
 3. each kernel against its plain PyTorch version on the card, on operands
    captured from one step of the fidelity preset serving pool (S=128,
    H=8, 120/30 ms), of the same pool with the fused fetch switched on
@@ -29,6 +29,9 @@ Phases (any failure raises and exits non-zero without the result line):
    (kernel 1) in both forms, the plain rows and the rows padded to the
    fidelity FFT size, at each pool's shape and at the front door's two
    fidelity bucket shapes (S=64, two frames a stream, block 5376 and 9216);
+   the stage-2 smoother pair (kernel 8) also at the one-hop cell's rows
+   (the preset's first 64) and at 512 kiosk rows, and in its per-row
+   coefficient form on the formant step's envelope;
 4. each stage of both engines' steps on the card against the same stage
    on the host CPU, fed the same inputs (the CPU path is the one the
    tests hold against the JAX package): the MDFT within a relative bound,
@@ -144,7 +147,8 @@ FORMANT_PARITY_DB = 45.0
 STAGES = {
     "fidelity": {"pool.pack": (),
                  "fidelity.analyse": ("frames_windowed",),
-                 "fidelity.chain_inputs": ("comp_cumsum", "frac_gather", "chainfetch"),
+                 "fidelity.chain_inputs": ("smooth_pair", "comp_cumsum", "frac_gather",
+                                           "chainfetch"),
                  "fidelity.hop_loop": ("band_chain",),
                  "fidelity.synthesis": ()},
     "fast": {"pool.pack": (),
@@ -160,9 +164,12 @@ GATHER_STAGE = {"fidelity": "fidelity.chain_inputs", "fast": "fast.hop_factors"}
 # other count must stay 0 (the fused route trades the two frac_gather
 # launches for one chainfetch; H launches of the band chain)
 PER_STEP = {
-    "preset": {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": 8},
-    "preset-fused": {"frames_windowed": 1, "comp_cumsum": 1, "chainfetch": 1, "band_chain": 8},
-    "kiosk": {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": 4},
+    "preset": {"frames_windowed": 1, "smooth_pair": 1, "comp_cumsum": 1, "frac_gather": 2,
+               "band_chain": 8},
+    "preset-fused": {"frames_windowed": 1, "smooth_pair": 1, "comp_cumsum": 1, "chainfetch": 1,
+                     "band_chain": 8},
+    "kiosk": {"frames_windowed": 1, "smooth_pair": 1, "comp_cumsum": 1, "frac_gather": 2,
+              "band_chain": 4},
     "fast": {"frames_windowed": 1, "banded_interp": 1},
 }
 KERNELS = {
@@ -182,16 +189,21 @@ KERNELS = {
                       "bauklank_tpu/ops/pallas/selection.py:87", "preset"),
     "chainfetch": ("bauklank_tpu_torch/csrc/chainfetch.cu",
                    "bauklank_tpu/ops/pallas/chainfetch.py:114", "preset-fused"),
+    "smooth_pair": ("bauklank_tpu_torch/csrc/smooth.cu",
+                    "none (bauklank_tpu/engine/spectral.py:_smooth_bidirectional x2, "
+                    "lax.associative_scan)", "preset"),
 }
 # the H100 SXM's published peaks (NVIDIA's data sheet): device memory and
 # float32 outside the tensor cores, which none of the kernels use
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float32 operations per output, counted from each plain version
-# (band_chain: per band and stream, 26 for the leader plus 25 a channel)
+# (band_chain: per band and stream, 26 for the leader plus 25 a channel;
+# smooth_pair: in each of its four scans the pre-multiply, a multiply and
+# an add up the tree and down it, and the carry's multiply and add)
 OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
                   "banded_interp": 3, "banded_interp_complex": 3, "pallas_gather": 3,
-                  "chainfetch": 3}
+                  "chainfetch": 3, "smooth_pair": 28}
 # the dependent float32 operations one step of a chain waits on (one
 # band of the band chain, one TwoSum of the compensated sum), each at
 # least the 4-cycle latency of a float32 add or multiply.  The band
@@ -203,9 +215,17 @@ OPS_PER_OUTPUT = {"frames_windowed": 1, "comp_cumsum": 10, "frac_gather": 3,
 # was: it is a floor, and the rows keep one yardstick.  Beside it phase 3
 # prints a second bound, the band's step read from registers
 # (band_step_cycles), so that the share of the first is not read as
-# headroom.
-CHAIN_DEPTH = {"band_chain": 19, "comp_cumsum": 7}
+# headroom.  The smoother pair's steps are not bands but tree levels, a
+# multiply and an add each: 2 floor(log2 B) + 2 a scan (the pre-multiply
+# and the carry's pair count as a level), four scans (chain_steps).
+CHAIN_DEPTH = {"band_chain": 19, "comp_cumsum": 7, "smooth_pair": 2}
 DEP_CYCLES = 4
+
+
+def chain_steps(name: str, args) -> int:
+    """The dependent steps of one of the CHAIN_DEPTH kernels' calls."""
+    b_n = args[0].shape[1]
+    return 4 * (2 * (b_n.bit_length() - 1) + 2) if name == "smooth_pair" else b_n
 # set once in main: the nvidia-smi name and power limit that label every
 # reading, and band_step_cycles()'s reading, the band chain's second bound
 CARD = ""
@@ -281,20 +301,23 @@ def capture_operands(store: dict, engine: str):
     """Record the first operands each kernel wrapper gets on the main path
     (the engine modules hold the wrappers by name).  frac_gather keeps its
     first three call shapes (the five-family and the prev|energy gather
-    and, with a formant voice, the envelope lookup), banded_interp its two
+    and, with a formant voice, the envelope lookup), smooth_pair its two
+    (with a formant voice: the envelope's, then the peaks map's),
+    banded_interp its two
     entry points' (the complex spectra; with formants on the natural and
     the target envelope)."""
     from bauklank_tpu_torch.engine import core, fidelity, spectral
     from bauklank_tpu_torch.ops import pitchmap
 
     if engine == "fidelity":
-        sites = [(fidelity, "frames_windowed"), (spectral, "comp_cumsum"),
+        sites = [(fidelity, "frames_windowed"), (spectral, "smooth_pair"),
+                 (spectral, "comp_cumsum"),
                  (spectral, "frac_gather"), (spectral, "chainfetch"),
                  (spectral, "band_chain")]
     else:
         sites = [(core, "frames_windowed"), (pitchmap, "banded_interp"),
                  (pitchmap, "banded_interp_complex")]
-    keep = {"frac_gather": 3, "banded_interp": 2}
+    keep = {"frac_gather": 3, "banded_interp": 2, "smooth_pair": 2}
     saved = [(mod, name, getattr(mod, name)) for mod, name in sites]
 
     def recorder(name, fn):
@@ -462,6 +485,10 @@ def bound(name: str, args) -> tuple[float, str, int, int]:
     elif name == "comp_cumsum":
         out = 2 * args[0].numel()
         need = args[0].numel()
+    elif name == "smooth_pair":
+        e, coef = args
+        out = e.numel()
+        need = e.numel() + (coef.numel() if hasattr(coef, "numel") else 0)
     elif name == "chainfetch":
         spec, prev, energy, ib, us, ul, step, long_step = args
         pos5 = _five_positions(ib, us, ul, step, long_step)
@@ -530,6 +557,7 @@ def kernel_pairs() -> dict:
     from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
     from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
                                                    banded_interp_ref)
+    from bauklank_tpu_torch.kernels.smooth import smooth_pair, smooth_pair_ref
 
     return {
         "frames_windowed": (frames_windowed, frames_windowed_ref),
@@ -540,6 +568,7 @@ def kernel_pairs() -> dict:
         "banded_interp_complex": (banded_interp_complex, banded_interp_ref),
         "pallas_gather": (pallas_gather, frac_gather_ref),
         "chainfetch": (chainfetch, chainfetch_ref),
+        "smooth_pair": (smooth_pair, smooth_pair_ref),
     }
 
 
@@ -629,7 +658,7 @@ def compare_kernels(ops: dict, tag: str, results: dict, mhz: float) -> None:
                 warm_note = f" (operands left in the L2: {warm_ms:.4f} ms)"
                 # a chain's operations wait on each other: its operations
                 # bound is the dependent chain's latency where that is longer
-                steps = args[0].shape[1]
+                steps = chain_steps(name, args)
                 chain_ms = steps * CHAIN_DEPTH[name] * DEP_CYCLES / (mhz * 1e3)
                 log(f"[bound] {tag} {name}#{j}: dependent chain {steps} steps x "
                     f"{CHAIN_DEPTH[name]} ops x {DEP_CYCLES} cycles at {mhz:.0f} MHz = "
@@ -1113,7 +1142,8 @@ def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
 
 
 # 8. the serving front door: the pools and the node as the server builds them
-FRONT_PATH = {"fidelity": ("frames_windowed", "comp_cumsum", "frac_gather", "band_chain"),
+FRONT_PATH = {"fidelity": ("frames_windowed", "smooth_pair", "comp_cumsum", "frac_gather",
+                           "band_chain"),
               "fast": ("frames_windowed", "banded_interp")}
 # (preset, kiosk, live) voices of each UnifiedPool; each bucket grows from 4
 FRONT_VOICES = {"fidelity": (64, 64, 16), "fast": (32, 32, 8)}
@@ -1929,8 +1959,8 @@ def stream_dp_one_rank(seed: int, card: str, launches: dict, device: str = "cuda
             lambda st, e, cfg_f=cfg_f, audio_f=audio_f, ctl=ctl: fid.batched_fidelity_chunk(
                 cfg_f, st, audio_f, e, *ctl),
             [(fid.init_batched_fidelity_state(cfg_f, s_n, device), ends_f[0]), (None, ends_f[1])],
-            {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 3 if formants else 2,
-             "band_chain": h})
+            {"frames_windowed": 1, "smooth_pair": 2 if formants else 1, "comp_cumsum": 1,
+             "frac_gather": 3 if formants else 2, "band_chain": h})
 
     s_n, h = P10["live"]
     cfg_l, chunks, _, ctl_l = _fidelity_inputs(s_n, h, 2, seed + 2, device)
@@ -1945,7 +1975,8 @@ def stream_dp_one_rank(seed: int, card: str, launches: dict, device: str = "cuda
         lambda st, c: fid.batched_live_fidelity_chunk(cfg_l, st, c, *ctl_l[1:]),
         [(fid.init_batched_live_fidelity_state(cfg_l, h, s_n, device), chunks[0]),
          (None, chunks[1])],
-        {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": h})
+        {"frames_windowed": 1, "smooth_pair": 1, "comp_cumsum": 1, "frac_gather": 2,
+         "band_chain": h})
 
     for what, (sharded, sh_steps, plain, steps, per_step) in kinds.items():
         plain(*steps[0])                    # first use of the geometry, untimed
@@ -2118,8 +2149,8 @@ def four_ranks_one_card(seed: int, card: str, launches: dict, tmp: str,
         _check_counts("a rank's stretch_offline_sharded (2, 2)", r["seqpar_counts"],
                       {"frames_windowed": 1, "banded_interp": 3}, 1, launches)
         _check_counts("a rank's sharded_fidelity_step", r["dp_counts"],
-                      {"frames_windowed": 1, "comp_cumsum": 1, "frac_gather": 2,
-                       "band_chain": P10["fidelity"][1]}, 2, launches)
+                      {"frames_windowed": 1, "smooth_pair": 1, "comp_cumsum": 1,
+                       "frac_gather": 2, "band_chain": P10["fidelity"][1]}, 2, launches)
 
     # the 2 x 2 render: rank r holds the streams of stream rank r // 2 and
     # the hops of seq rank r % 2
@@ -2184,12 +2215,14 @@ def hop_forms(seed: int, card: str, launches: dict, device: str = "cuda") -> Non
             lambda st, e: fid.batched_fidelity_chunk(cfg, st, audio, e, *ctl), [(state, e)],
             device)
         _check_counts("batched_fidelity_chunk", counts_a, {"frames_windowed": 1,
-                      "comp_cumsum": 1, "frac_gather": 2, "band_chain": h}, 1, launches)
+                      "smooth_pair": 1, "comp_cumsum": 1, "frac_gather": 2, "band_chain": h},
+                      1, launches)
         sb, outs_b, ms_b, counts_b = _run_counted(
             lambda st, e: fid.batched_fidelity_chunk_scan(cfg, st, audio, e, *ctl), [(state, e)],
             device)
         _check_counts("batched_fidelity_chunk_scan", counts_b, {"frames_windowed": 1,
-                      "comp_cumsum": h, "frac_gather": 2 * h, "band_chain": h}, 1, launches)
+                      "smooth_pair": h, "comp_cumsum": h, "frac_gather": 2 * h,
+                      "band_chain": h}, 1, launches)
         emit = float((outs_a[0] - outs_b[0]).abs().max())
         leaf = max(float(((a - b).abs() - 2e-4 * b.abs()).max())
                    for a, b in zip(_leaves(sa), _leaves(sb)) if a.is_floating_point()
@@ -2212,8 +2245,8 @@ def hop_forms(seed: int, card: str, launches: dict, device: str = "cuda") -> Non
     st_k, outs_k, ms_k, counts_k = _run_counted(
         lambda st, c, p: fid._scan_hops(cfg, st, c, p, *one), [(st0, cur[:, 0], prev[:, 0])],
         device)
-    _check_counts("_scan_hops", counts_k, {"comp_cumsum": h, "frac_gather": 2 * h,
-                  "band_chain": h}, 1, launches)
+    _check_counts("_scan_hops", counts_k, {"smooth_pair": h, "comp_cumsum": h,
+                  "frac_gather": 2 * h, "band_chain": h}, 1, launches)
     st_p, outs_p = tree_map(lambda x: x[None], st0), []
     for i in range(h):
         st_p, out = spectral.spectral_hop_batched(cfg, st_p, cur[i, :1], prev[i, :1],
@@ -2317,13 +2350,21 @@ def main(argv=None) -> int:
             # kernel 6, which no step calls, on the call it would serve: the
             # five-family gather
             compare_kernels({"pallas_gather": ops["frac_gather"][:1]}, kind, results, mhz)
+        if pool.engine == "fidelity":
+            # kernel 8 at the one-hop cell's rows (S = 64, H = 1: the
+            # preset's first 64) and at 512 kiosk rows (two copies)
+            e, coef = ops["smooth_pair"][0]
+            rows = e[:64] if kind == "preset" else torch.cat([e, e])[:512]
+            compare_kernels({"smooth_pair": [(rows.contiguous(), coef)]}, f"{kind}-rows",
+                            results, mhz)
         if kind == "preset":
             gather_args = ops["frac_gather"][0]
             # kernel 7: the next step of the same pool with the fused fetch
             ops = {}
             with chainfetch_switch(True), capture_operands(ops, "fidelity"):
                 pool.step(fetch=True)
-            if set(ops) != {"frames_windowed", "comp_cumsum", "chainfetch", "band_chain"}:
+            if set(ops) != {"frames_windowed", "smooth_pair", "comp_cumsum", "chainfetch",
+                            "band_chain"}:
                 raise AssertionError(f"the fused step called {sorted(ops)}")
             compare_kernels({"chainfetch": ops["chainfetch"]}, "preset-fused", results, mhz)
             # the formant chain's envelope lookup, a third, one-plane gather:
@@ -2336,7 +2377,11 @@ def main(argv=None) -> int:
             lookup = [a for a in ops["frac_gather"] if a[0].shape[2] == 1]
             if len(ops["frac_gather"]) != 3 or len(lookup) != 1:
                 raise AssertionError("the formant step made no one-plane gather")
-            compare_kernels({"frac_gather": lookup}, "preset-formant", results, mhz)
+            per_row = [a for a in ops["smooth_pair"] if hasattr(a[1], "shape")]
+            if len(ops["smooth_pair"]) != 2 or len(per_row) != 1:
+                raise AssertionError("the formant step smoothed no envelope")
+            compare_kernels({"frac_gather": lookup, "smooth_pair": per_row}, "preset-formant",
+                            results, mhz)
         if kind == "fast":
             # the envelope gathers: a step with one formant voice
             ops = {}
@@ -2414,8 +2459,10 @@ def main(argv=None) -> int:
             f"PyTorch bit for bit over {master.shape[-1]} samples")
     torch.cuda.empty_cache()
     # the fidelity preset pool with a formant voice: the envelope lookup is a
-    # third frac_gather launch a step; the fast pool: three gathers a step
-    for kind, per_step in (("preset", {**PER_STEP["preset"], "frac_gather": 3}),
+    # third frac_gather launch a step and its smoothing a second smooth_pair;
+    # the fast pool: three gathers a step
+    for kind, per_step in (("preset", {**PER_STEP["preset"], "frac_gather": 3,
+                                       "smooth_pair": 2}),
                            ("fast", {**PER_STEP["fast"], "banded_interp": 3})):
         pool = pools[kind]
         if not pool.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):

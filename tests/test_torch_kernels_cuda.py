@@ -20,6 +20,7 @@ from bauklank_tpu_torch.kernels.frames import frames_windowed, frames_windowed_r
 from bauklank_tpu_torch.kernels.gather import frac_gather, frac_gather_ref, pallas_gather
 from bauklank_tpu_torch.kernels.interp import (banded_interp, banded_interp_complex,
                                                banded_interp_ref)
+from bauklank_tpu_torch.kernels.smooth import SMEM_LIMIT, smem_bytes, smooth_pair, smooth_pair_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -557,3 +558,43 @@ def test_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError, match="aligned"):
         chainfetch(z(2, 8, 4), z(2, 8, 4), z(2, 8, 2), z(17)[1:].view(2, 8), z(2, 8), z(2, 8),
                    z(2), 2)
+
+
+def _smooth_rows(n_n, b_n, seed):
+    """Rows of energies over a wide range, with exact zeros, denormals,
+    runs of zeros (whose smoothed tails decay through the denormals) and
+    large values (up to ~1e32).  B: tiny rows of both parities, the
+    preset's 3072, 4608 and the kiosk pool's 5120."""
+    rng = np.random.default_rng(seed)
+    e = np.abs(rng.standard_normal((n_n, b_n))
+               * np.exp2(rng.integers(-40, 40, (n_n, 1)))).astype(np.float32)
+    e[::3, ::5] = 0.0
+    e[1::3, ::7] = np.float32(3e-41)
+    e[2::3, b_n // 3:] = 0.0
+    e[::4] *= np.float32(1e20)
+    return e
+
+
+@pytest.mark.parametrize("b_n", [1, 2, 3, 7, 3072, 4608, 5120])
+@pytest.mark.parametrize("n_n", [1, 5, 1024])
+@pytest.mark.parametrize("form", ["scalar", "rows"])
+def test_smooth_pair(dev, b_n, n_n, form):
+    """Kernel 8 against its plain version on the card, bit for bit."""
+    e = _t(_smooth_rows(n_n, b_n, b_n * 7 + n_n), dev)
+    coef = (1.0 / (0.5 * (6144 / 1536) + 1.0) if form == "scalar" else
+            _t(np.random.default_rng(n_n).uniform(0.01, 0.9, n_n).astype(np.float32), dev))
+    got = _launched("smooth_pair", lambda: smooth_pair(e, coef))
+    assert _same_bits(got, smooth_pair_ref(e, coef))
+
+
+def test_smooth_pair_refuses_bad_operands(dev):
+    e = torch.zeros(4, 64, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        smooth_pair(e.double(), 0.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        smooth_pair(torch.zeros(64, 4, device=dev).t(), 0.5)
+    with pytest.raises(ValueError, match="devices"):
+        smooth_pair(e, torch.full((4,), 0.5))
+    wide = next(b for b in range(4608, 1 << 16, 64) if smem_bytes(b) > SMEM_LIMIT)
+    with pytest.raises(ValueError, match="shared memory"):
+        smooth_pair(torch.zeros(2, wide, device=dev), 0.5)

@@ -96,10 +96,12 @@ def test_native_sources_are_package_data():
 def test_kernel_sources_and_flags():
     names = sorted(p.name for p in (PKG / "csrc").glob("*.cu"))
     assert names == ["bandchain.cu", "chainfetch.cu", "compsum.cu", "frac_gather.cu",
-                     "frames.cu", "interp.cu"]
+                     "frames.cu", "interp.cu", "smooth.cu"]
     for p in (PKG / "csrc").glob("*.cu"):
         head = p.read_text()[:2000]
-        assert "Replaces the TPU kernel bauklank_tpu/ops/pallas/" in head, p.name
+        # kernel 8 stands where the JAX package has lax.associative_scan
+        assert ("Replaces no TPU kernel" in head if p.name == "smooth.cu" else
+                "Replaces the TPU kernel bauklank_tpu/ops/pallas/" in head), p.name
         assert "What bounds it on the H100" in head, p.name
         assert "Design:" in head, p.name
     assert "--fmad=false" in build.NVCC_FLAGS
@@ -113,7 +115,7 @@ def test_kernel_sources_and_flags():
                                         "bk_band_step_cycles"})
     assert set(kernels.LAUNCHES) == {
         "frames_windowed", "comp_cumsum", "frac_gather", "band_chain", "banded_interp",
-        "pallas_gather", "chainfetch"}
+        "pallas_gather", "chainfetch", "smooth_pair"}
     # the two sequential kernels stage their operands through one header, and
     # neither divides by a run-time value on its walk
     for name in ("bandchain.cu", "compsum.cu"):

@@ -81,7 +81,7 @@ def test_render_loop_masters_equal_a_direct_pool(dev):
         np.testing.assert_array_equal(got, want)
     # the first hops are silent (the engine's output latency), not all of them
     assert np.abs(np.concatenate(masters[:STEPS], axis=1)).max() > 0
-    for k in ("frames_windowed", "comp_cumsum", "frac_gather", "band_chain"):
+    for k in ("frames_windowed", "smooth_pair", "comp_cumsum", "frac_gather", "band_chain"):
         assert kernels.LAUNCHES[k] > 0, k
 
 

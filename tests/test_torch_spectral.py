@@ -33,6 +33,7 @@ from bauklank_tpu_torch.engine import fidelity as tfid
 from bauklank_tpu_torch.engine import spectral as tspec
 from bauklank_tpu_torch.kernels.bandchain import band_chain, band_chain_ref
 from bauklank_tpu_torch.kernels.compsum import comp_cumsum, comp_cumsum_ref
+from bauklank_tpu_torch.kernels.smooth import smooth_pair
 
 sys.path.insert(0, "tools")
 from golden_wasm import material  # noqa: E402
@@ -100,6 +101,42 @@ def test_smooth_bidirectional_bit_equal():
         ts, tc = tspec._smooth_bidirectional(_t(e), coef, _t(carry))
         np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
         np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+# ---------------------------------------------- kernel 8: the smoother pair
+@pytest.mark.parametrize("b_n", [1, 2, 3, 7, 777, 3072])
+@pytest.mark.parametrize("form", ["scalar", "rows"])
+def test_smooth_pair_bit_equal(b_n, form):
+    """smooth_pair on CPU tensors against JAX's two chained smoothers (the
+    second from the first one's carry), in both coefficient forms; rows
+    with exact zeros and large values (no denormals: XLA's CPU flushes
+    them, PyTorch's does not)."""
+    rng = np.random.default_rng(b_n)
+    e = np.abs(rng.standard_normal((4, b_n)) * np.exp2(rng.integers(-20, 20, (4, 1)))
+               ).astype(np.float32)
+    e[0, ::3] = 0.0
+    e[2] *= np.float32(1e30)
+    e[3, b_n // 4:b_n // 4 + 40] = 0.0
+    if form == "scalar":
+        coef_j = coef_t = 1.0 / (0.5 * (6144 / 1536) + 1.0)
+    else:
+        coef = rng.uniform(0.01, 0.9, 4).astype(np.float32)
+        coef_j, coef_t = jnp.asarray(coef), _t(coef)
+    js, jc = jspec._smooth_bidirectional(jnp.asarray(e), coef_j, jnp.zeros(4))
+    js, _ = jspec._smooth_bidirectional(js, coef_j, jc)
+    got = smooth_pair(_t(e), coef_t)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("case", ["dtype", "dims", "coef-shape", "coef-int", "devices"])
+def test_smooth_pair_refuses_bad_operands(case):
+    e = torch.zeros(3, 16)
+    args = {"dtype": (e.double(), 0.5), "dims": (e[None], 0.5),
+            "coef-shape": (e, torch.full((4,), 0.5)),
+            "coef-int": (e, torch.ones(3, dtype=torch.int32)),
+            "devices": (e, torch.full((3,), 0.5, device="meta"))}[case]
+    with pytest.raises(ValueError, match="smooth_pair"):
+        smooth_pair(*args)
 
 
 # ------------------------------------------------------ kernel 2: compsum
