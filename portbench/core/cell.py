@@ -19,14 +19,22 @@ steps inside the window.
 The program is used only through ``StreamPool``, ``load_track``,
 ``apply_set`` and ``step``, besides the kernel library's load; its
 carried state (``pool.states``) is read at the compared steps, and its
-geometry is held to the configuration file's.  No switch of the program
-is set.
+geometry is held to the configuration file's.  ``StreamPool`` gets the
+eight arguments the harness sets from the cell (``HARNESS_SETS``) and
+the configuration file's ``pool``, if it has one, as keyword arguments
+exactly as the file states them.  No switch of the program is set:
+``pool`` holds only a deployment's own settings as its public source
+states them (the block, the interval, the range of a control), each
+named in the file's ``source`` or ``assumed``; an environment variable
+or the program's choice of path (``BAUKLANK_CHAINFETCH``) never goes
+there.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import subprocess
@@ -40,6 +48,10 @@ from portbench.core import check, spec, synth
 from portbench.core.traffic import Traffic
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "bauklank_tpu")
+
+# the arguments of ``StreamPool`` that the harness sets from the cell
+HARNESS_SETS = ("capacity", "sample_rate", "channels", "max_track_sec", "names",
+                "hops_per_step", "engine", "device")
 
 
 def forbidden_modules(names=FORBIDDEN) -> list:
@@ -108,7 +120,31 @@ def _card() -> str:
         return "nvidia-smi not readable"
 
 
-def _hold_geometry(pool, cfg: dict) -> None:
+def pool_arguments(cfg: dict, stream_pool) -> dict:
+    """The configuration file's ``pool``: keyword arguments of
+    ``stream_pool`` (the program's ``StreamPool``), passed as the file
+    states them.  Refused, before any pool is built: a key the harness
+    sets from the cell, a key the program's signature lacks, a value that
+    is not a JSON number, string or boolean."""
+    given = cfg.get("pool", {})
+    if not isinstance(given, dict):
+        raise SystemExit(f"error: the configuration file's pool is {given!r}, not an object "
+                         "of StreamPool's keyword arguments")
+    params = list(inspect.signature(stream_pool).parameters)
+    for key, value in given.items():
+        if key in HARNESS_SETS:
+            raise SystemExit(f"error: the configuration file's pool gives {key!r}, which the "
+                             "harness sets from the cell")
+        if key not in params:
+            raise SystemExit(f"error: the configuration file's pool gives {key!r}, which "
+                             f"StreamPool lacks; its parameters are {params}")
+        if not isinstance(value, (bool, int, float, str)):
+            raise SystemExit(f"error: the configuration file's pool gives {key!r} the value "
+                             f"{value!r}, not a number, a string or a boolean")
+    return given
+
+
+def _hold_geometry(pool, cfg: dict, given: dict) -> None:
     """The configuration file's geometry, which the reference is built
     from, has to be the one the program's pool runs."""
     prog = pool.scfg if cfg["engine"] == "fidelity" else pool.config
@@ -117,7 +153,8 @@ def _hold_geometry(pool, cfg: dict) -> None:
            for k in cfg["geometry"]}
     if got != cfg["geometry"]:
         raise SystemExit(f"error: the pool runs the geometry {got}, the configuration "
-                         f"file states {cfg['geometry']}")
+                         f"file states {cfg['geometry']} (pool arguments from the "
+                         f"configuration file: {given or 'none'})")
 
 
 class _Pool:
@@ -128,13 +165,14 @@ class _Pool:
     def __init__(self, cell: spec.Cell, seed: int, device: str):
         from bauklank_tpu_torch.serve import StreamPool
 
+        cfg, mix = cell.config, cell.traffic
+        self.pool_args = pool_arguments(cfg, StreamPool)
         self.marks = [("import", time.perf_counter())]
         if device == "cuda":
             from bauklank_tpu_torch.kernels import build
 
             build.library()
         self.marks.append(("kernel library", time.perf_counter()))
-        cfg, mix = cell.config, cell.traffic
         self.voices, self.hops = int(mix["voices"]), int(mix["hops_per_step"])
         sr, channels = float(cfg["sample_rate"]), int(cfg["channels"])
         self.ref = spec.reference(cell.root, cfg["engine"])
@@ -142,8 +180,9 @@ class _Pool:
         self.names = [f"v{i:03d}" for i in range(self.voices)]
         self.pool = StreamPool(capacity=self.voices, sample_rate=sr, channels=channels,
                                max_track_sec=cfg["max_track_sec"], names=self.names,
-                               hops_per_step=self.hops, engine=cfg["engine"], device=device)
-        _hold_geometry(self.pool, cfg)
+                               hops_per_step=self.hops, engine=cfg["engine"], device=device,
+                               **self.pool_args)
+        _hold_geometry(self.pool, cfg, self.pool_args)
         self.marks.append(("pool", time.perf_counter()))
         self.track_sec = float(mix["track_sec"])
         dev_audio = synth.make_audio(self.voices, channels, int(self.track_sec * sr), sr, seed,
@@ -329,7 +368,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, t0: float,
     build_s = p.marks[1][1] - p.marks[0][1]
     print("setup: " + ", ".join(f"{name} {b - a:.3f} s" for (name, b), (_, a) in
                                 zip(p.marks, [("", t0)] + p.marks))
-          + " (setup_s leaves out the kernel library)", file=sys.stderr)
+          + f" (setup_s leaves out the kernel library); pool arguments from the "
+          f"configuration file: {p.pool_args or 'none'}", file=sys.stderr)
     w = _window(p, mix, first, seed, seconds, trace, device)
 
     device_info = dict(platform="gpu" if device == "cuda" else device,

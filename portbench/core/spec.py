@@ -2,6 +2,14 @@
 
 Nothing here knows a cell, configuration, traffic mix or metric by name:
 each is found from ``BENCHMARK.json`` and the files under ``portbench/``.
+
+A configuration file (``portbench/configs/<name>.json``) states one
+deployment: its ``engine``, ``sample_rate``, ``channels`` and
+``max_track_sec``; the ``geometry`` that the reference is built from and
+that the program's pool has to run; and, where the deployment's source
+sets more than the harness does, ``pool``, an object of further keyword
+arguments of the program's ``StreamPool`` (numbers, strings, booleans),
+handed to it as stated (``core/cell.py:pool_arguments``).
 """
 
 from __future__ import annotations

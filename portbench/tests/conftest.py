@@ -36,10 +36,11 @@ TINY_LIMITS = {
 
 
 def make_root(tmp: pathlib.Path, engine: str, hops: int = 2, rate_lo: float = 0.5,
-              voices: int = 3) -> pathlib.Path:
+              voices: int = 3, pool: dict | None = None) -> pathlib.Path:
     """A copy of the benchmark under ``tmp`` with one tiny cell added as
     new files and new entries: ``tiny.<engine>`` of configuration
-    ``tiny-<engine>`` and traffic ``tiny-mix``."""
+    ``tiny-<engine>`` (with ``pool`` as its ``pool``, if given) and
+    traffic ``tiny-mix``."""
     root = tmp / "root"
     shutil.copytree(REPO / "portbench", root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -49,6 +50,8 @@ def make_root(tmp: pathlib.Path, engine: str, hops: int = 2, rate_lo: float = 0.
     cfg["geometry"] = ({"block": 960, "interval": 240, "split_computation": True}
                        if engine == "fidelity" else
                        {"block": 1024, "interval": 240, "split_computation": True})
+    if pool is not None:
+        cfg["pool"] = pool
     (root / "portbench" / "configs" / f"tiny-{engine}.json").write_text(json.dumps(cfg))
     mix = json.loads((REPO / "portbench" / "traffic" / "s64h1.json").read_text())
     mix.update(voices=voices, hops_per_step=hops, track_sec=4, warmup_steps=2,

@@ -4,6 +4,7 @@ import."""
 
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import subprocess
@@ -69,6 +70,20 @@ def test_every_named_file_is_there_and_every_cell_reports_enough():
         cfg = json.loads((REPO / c["file"]).read_text())
         assert (REPO / "portbench" / "reference" / f"{cfg['engine']}.py").exists()
         assert c["reduced"] == []
+
+
+def test_every_configuration_pool_names_only_arguments_the_harness_hands_on():
+    """A configuration file's ``pool`` names ``StreamPool`` parameters
+    that the harness does not set from the cell."""
+    from bauklank_tpu_torch.serve import StreamPool
+    from portbench.core import cell
+
+    params = set(inspect.signature(StreamPool).parameters)
+    assert set(cell.HARNESS_SETS) <= params
+    for c in BENCH["configs"]:
+        pool = json.loads((REPO / c["file"]).read_text()).get("pool", {})
+        assert isinstance(pool, dict), c["name"]
+        assert set(pool) <= params - set(cell.HARNESS_SETS), c["name"]
 
 
 class _Run:

@@ -5,6 +5,7 @@ point refuses to run without a card."""
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -82,6 +83,81 @@ def test_cell_added_as_files_only_is_found_and_run(tiny_root):
     result, _ = run_tiny(root, "fast", 3, SECONDS["fast"], trace=True)
     assert result["correct"]
     assert result["metrics"]["bench_set_ms"]["value"] >= 0.0
+
+
+class _NotBuilt(Exception):
+    pass
+
+
+def _record_pool(monkeypatch, build: bool = True) -> list:
+    """The (positional, keyword) arguments of every ``StreamPool`` built
+    from here on; without ``build`` the first one raises ``_NotBuilt``
+    once its arguments are recorded."""
+    from bauklank_tpu_torch.serve import StreamPool
+
+    calls, init = [], StreamPool.__init__
+
+    @functools.wraps(init)       # the harness reads the signature through it
+    def recording(self, *args, **kwargs):
+        calls.append((args, kwargs))
+        if not build:
+            raise _NotBuilt
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(StreamPool, "__init__", recording)
+    return calls
+
+
+def test_configuration_pool_arguments_reach_the_program(tiny_root, monkeypatch):
+    calls = _record_pool(monkeypatch)
+    root = tiny_root("fidelity", pool={"max_rate": 4.0})
+    result, _ = run_tiny(root, "fidelity", 2**32 + 9, SECONDS["fidelity"])
+    assert result["correct"], result["checks"]
+    assert len(calls) == 1 and calls[0][0] == ()
+    assert calls[0][1]["max_rate"] == 4.0
+
+
+@pytest.mark.parametrize("pool, said", [
+    ({"channels": 1}, "'channels', which the harness sets from the cell"),
+    ({"portbench_no_such_argument": 1},
+     "'portbench_no_such_argument', which StreamPool lacks; its parameters are ["),
+    ({"config": {"block": 8820}}, "'config' the value {'block': 8820}, not a number"),
+], ids=["set_by_the_harness", "not_a_parameter", "not_a_scalar"])
+def test_pool_argument_that_cannot_be_handed_on_is_refused_before_the_pool(
+        tiny_root, monkeypatch, capsys, pool, said):
+    """Refused with the key named, before ``StreamPool`` is called (so
+    before any step), and with nothing on standard output."""
+    calls = _record_pool(monkeypatch)
+    root = tiny_root("fast", pool=pool)
+    with pytest.raises(SystemExit) as refused:
+        run_tiny(root, "fast", 11, SECONDS["fast"])
+    assert said in str(refused.value)
+    assert calls == []
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("config", ["fidelity-preset", "fast-preset"])
+def test_accepted_configurations_build_the_pool_from_the_cell_alone(monkeypatch, config):
+    """A configuration file without ``pool`` gives the harness's eight
+    arguments, as keywords, and nothing more."""
+    from portbench.core import cell, spec
+
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    name = next(w["name"] for w in bench["workloads"] if w["config"] == config)
+    c = spec.load_cell(REPO, name)
+    assert "pool" not in c.config
+    calls = _record_pool(monkeypatch, build=False)
+    with pytest.raises(_NotBuilt):
+        cell._Pool(c, 5, "cpu")
+    (args, kwargs), = calls
+    voices = int(c.traffic["voices"])
+    assert args == () and kwargs == dict(
+        capacity=voices, sample_rate=float(c.config["sample_rate"]),
+        channels=int(c.config["channels"]), max_track_sec=c.config["max_track_sec"],
+        names=[f"v{i:03d}" for i in range(voices)],
+        hops_per_step=int(c.traffic["hops_per_step"]), engine=c.config["engine"],
+        device="cpu")
+    assert set(kwargs) == set(cell.HARNESS_SETS)
 
 
 def _bare_run(cwd, script):
