@@ -5,13 +5,17 @@ Port of ``bauklank_tpu/cli.py``.  Usage (also via
 
     bauklank stretch in.wav out.wav --rate 0.5 --semitones 3
     bauklank serve --engine-count 2 --ws-port 8765 --pool-capacity 2
+    bauklank serve --pool-capacity 64 --engine fidelity --block-ms 200 --overlap 1
     bauklank topology-header > time_pitch_mapping.h
 
 ``stretch`` is the offline renderer (the fast engine's
 ``stretch_offline``); ``serve`` is the control-plane server (reference
 server-multi.py's role).  ``stretch`` and ``serve`` take ``--device``
 (default ``cuda``; ``--device cpu`` runs the kernels' plain versions),
-which stands where the JAX CLI reads ``JAX_PLATFORMS``.
+which stands where the JAX CLI reads ``JAX_PLATFORMS``.  ``serve``'s
+``--block-ms`` and ``--overlap`` (the port's, beside the JAX flags) give
+a ``--pool stream`` pool a deployment's own geometry: the kiosk's
+200 ms at overlap 1 is block and interval 8820.
 """
 
 from __future__ import annotations
@@ -77,6 +81,8 @@ def _cmd_serve(args) -> int:
         "--pool", args.pool,
         "--engine", args.engine,
         "--device", args.device,
+        "--block-ms", str(args.block_ms),
+        "--overlap", str(args.overlap),
     ]
     for port in args.serial_exclude:
         argv += ["--serial-exclude", port]
@@ -128,6 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--pool", default="stream", choices=("stream", "unified"))
     sv.add_argument("--engine", default="fast", choices=("fast", "fidelity"))
     sv.add_argument("--device", default="cuda", help="device the pools run on (default cuda)")
+    sv.add_argument("--block-ms", type=float, default=0.0,
+                    help="--pool stream: block in ms (the kiosk: 200); 0 = the 120/30 ms preset")
+    sv.add_argument("--overlap", type=float, default=0.0,
+                    help="with --block-ms: block over interval (the kiosk: 1); 0 = the preset's 4")
     sv.set_defaults(fn=_cmd_serve)
 
     th = sub.add_parser("topology-header", help="emit the encoder-firmware C header")

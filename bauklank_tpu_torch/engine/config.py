@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["StretchConfig", "preset_default", "preset_cheaper"]
+__all__ = ["StretchConfig", "preset_default", "preset_cheaper", "block_interval"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +118,12 @@ def preset_cheaper(channels: int, sample_rate: float, split_computation: bool = 
         interval=round(sample_rate * 0.04),
         split_computation=split_computation,
     )
+
+
+def block_interval(block_ms: float, overlap: float, sample_rate: float) -> tuple[int, int]:
+    """The block and interval in samples of the app layer's ``blockMs`` and
+    ``overlap`` (``intervalMs = blockMs / overlap``; reference:
+    app/multi/app.mjs:409-417), before any rounding onto the FFT grid: the
+    kiosk's 200 ms at overlap 1 and 44.1 kHz is (8820, 8820)."""
+    block = round(sample_rate * block_ms / 1000.0)
+    return block, max(1, round(block / overlap))

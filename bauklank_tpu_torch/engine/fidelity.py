@@ -4,8 +4,9 @@ Port of ``bauklank_tpu/engine/fidelity.py`` for the serving forms.  One
 pool step (:func:`batched_fidelity_chunk`) runs:
 
 1. the windowed cur/prev frame fetch (kernel 1) and a batched MDFT;
-2. ``engine.spectral.chain_inputs_hops``: every hop-local input of the
-   chunk in one batched pass (the smoother pair via kernel 8, the peaks
+2. ``engine.spectral.minstd_hops`` and ``chain_inputs_drawn`` (together
+   ``chain_inputs_hops``): every hop-local input of the chunk in one
+   batched pass (the smoother pair via kernel 8, the peaks
    map via kernel 2, gathers via kernel 3 or the fused kernel 7, the
    formant chain where a voice asks for it);
 3. a Python loop over hops whose body rotates the carried spectrum, forms
@@ -17,7 +18,11 @@ range (``utils.metrics.span``: ``fidelity.analyse``,
 ``fidelity.chain_inputs``, ``fidelity.hop_loop``, ``fidelity.synthesis``),
 and the carried state's update after them (inactive streams keep theirs)
 inside ``fidelity.carry``, so a profile splits the whole step's host and
-device time by stage.
+device time by stage.  Stage 2's MINSTD part (``minstd_hops``: every
+hop's seed, its 2B-2 draws, the state carried out) runs in a sibling
+range before it, ``fidelity.minstd``, on a step outside the
+deterministic regime (some stream at time factor > 2, or no word on the
+regime); inside that regime it adds a second ``fidelity.chain_inputs``.
 
 The host side (:func:`hop_frame_ends`) replicates the worklet's float time
 accumulation bit-for-bit, as the JAX package does.
@@ -45,8 +50,9 @@ from bauklank_tpu_torch.engine.spectral import (
     _hop_chain,
     band_chain_packed,
     blob_window,
-    chain_inputs_hops,
+    chain_inputs_drawn,
     init_spectral_state,
+    minstd_hops,
     spectral_hop,
     spectral_hop_batched,
 )
@@ -217,7 +223,7 @@ def _hop_loop(cfg: SpectralConfig, prev_out: torch.Tensor, xs: dict) -> torch.Te
     """The sequential part of a chunk: each hop rotates the carried
     spectrum, forms the time prediction and ``u12``, and runs the band
     chain (kernel 4).  prev_out [S, C, B]; ``xs`` from
-    :func:`chain_inputs_hops`.  Returns every hop's output [S, H, C, B]."""
+    ``chain_inputs_drawn``.  Returns every hop's output [S, H, C, B]."""
     outs = []
     for i in range(xs["tw"].shape[0]):
         x = {k: v[i] for k, v in xs.items()}
@@ -245,10 +251,15 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
     spec_states, _ = states
     with span("fidelity.analyse"):
         cur, prev = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
+    # outside the deterministic regime the MINSTD seeds, draw streams and
+    # carried state are a stage of their own
+    with span("fidelity.chain_inputs" if deterministic else "fidelity.minstd"):
+        draws = minstd_hops(cfg, spec_states.rng, tf, ends.shape[1], deterministic)
     with span("fidelity.chain_inputs"):
-        xs, (rng_final, fv, fw) = chain_inputs_hops(
+        xs, (fv, fw) = chain_inputs_drawn(
             cfg, spec_states, cur, prev, tf, mult, limit,
-            formant_factor, formant_compensation, formant_base, deterministic)
+            formant_factor, formant_compensation, formant_base, deterministic, draws)
+    rng_final = draws[2]
     with span("fidelity.hop_loop"):
         outs = _hop_loop(cfg, spec_states.prev_output, xs)          # [S, H, C, B]
         new_spec = SpectralState(

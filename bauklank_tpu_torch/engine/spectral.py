@@ -64,6 +64,8 @@ __all__ = [
     "spectral_hop",
     "spectral_hop_batched",
     "chain_inputs_hops",
+    "chain_inputs_drawn",
+    "minstd_hops",
     "band_chain_packed",
 ]
 
@@ -521,7 +523,7 @@ def chainfetch_enabled() -> bool:
 
 
 def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult, limit,
-                        fgain=None, deterministic: bool | None = None):
+                        fgain=None, deterministic: bool | None = None, seq=None):
     """All hops' chain inputs: the peaks map for every (hop, stream) row
     in one batched pass, then the row gathers — ``spec`` planes at the
     five-family positions and ``prev | energy`` planes at ``input_bin``.
@@ -533,7 +535,8 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
     (the pool knows its rates on the host); left None, the switched-on
     route reads it from ``time_factor``, which waits for the device.
     With the regime known to be deterministic the MINSTD draw streams,
-    which it discards, are not computed."""
+    which it discards, are not computed; ``seq`` [H, S, 2B-2] gives them
+    drawn already (:func:`minstd_hops`), and ``seeds`` is then not read."""
     h, s_n, c_n, b_n = cur.shape
     n = h * s_n
     dev = cur.device
@@ -552,11 +555,10 @@ def _hop_inputs_hoisted(cfg: SpectralConfig, cur, prev, seeds, time_factor, mult
     fused = fused and bool(deterministic)
 
     # MINSTD draw streams of every hop (used only where tf > 2)
-    if deterministic:
+    if seq is None and deterministic:
         seq = torch.ones((), dtype=torch.int64, device=dev).expand(h, s_n, 2 * b_n - 2)
-    else:
-        pows, _ = _minstd_tables(2 * b_n - 2, h, dev)
-        seq = _modmul31(seeds[..., None], pows)                  # [H, S, 2B-2]
+    elif seq is None:
+        seq = _minstd_draws(seeds, 2 * b_n - 2)
 
     prev_rot, energy_c, input_bin, grad, families = _hop_pre_gather(
         cfg, cur, prev, ib_m.reshape(h, s_n, b_n), gr_m.reshape(h, s_n, b_n),
@@ -603,6 +605,65 @@ def _hop_local_inputs(cfg: SpectralConfig, spec_in, spec_prev, seed, time_factor
     return {k: v[0] for k, v in xs.items()}
 
 
+def _minstd_draws(seeds: torch.Tensor, n_draws: int) -> torch.Tensor:
+    """The draw stream s·a^(k+1) mod M, k < ``n_draws``, of each seed:
+    seeds [H, S] -> [H, S, n_draws] int64."""
+    pows, _ = _minstd_tables(n_draws, seeds.shape[0], seeds.device)
+    return _modmul31(seeds[..., None], pows)
+
+
+def minstd_hops(cfg: SpectralConfig, rng: torch.Tensor, time_factor: torch.Tensor,
+                n_hops: int, deterministic: bool | None = None):
+    """The MINSTD part of a chunk of ``n_hops`` hops: each hop's seed (the
+    carried state advanced by a whole hop's 2B-2 draws per hop where the
+    stream is at time factor > 2, else held), the state carried out, and,
+    unless the caller's word is that every stream is deterministic, every
+    hop's draw stream.  rng, time_factor [S].  Returns (seeds [H, S],
+    seq [H, S, 2B-2] or None, rng_final [S])."""
+    n_draws = 2 * cfg.bands - 2
+    _, hop_pows = _minstd_tables(n_draws, n_hops, rng.device)
+    seeds_all = _modmul31(rng[None, :], hop_pows[:, None])        # [H+1, S]
+    use = time_factor > 2.0
+    seeds = torch.where(use[None, :], seeds_all[:n_hops], rng[None, :])
+    rng_final = torch.where(use, seeds_all[n_hops], rng)
+    seq = None if deterministic else _minstd_draws(seeds, n_draws)
+    return seeds, seq, rng_final
+
+
+def chain_inputs_drawn(cfg: SpectralConfig, state: SpectralState, cur, prev,
+                       time_factor, mult, limit, formant_factor, formant_compensation,
+                       formant_base, deterministic: bool | None, draws):
+    """:func:`chain_inputs_hops` after its MINSTD part: ``draws`` is
+    :func:`minstd_hops`' (seeds, seq, rng_final) for this chunk.  Returns
+    ``(xs, (f_value_ema, f_weighted_ema))``."""
+    h = cur.shape[0]
+    seeds, seq, _ = draws
+    fgain = None
+    fv, fw = state.f_value_ema, state.f_weighted_ema
+    if cfg.formants and formant_factor is not None:
+        active = (formant_factor != 1.0) | ((formant_compensation != 0.0) & (mult != 1.0))
+        env_e = torch.sum(torch.square(torch.abs(cur)), dim=2)    # [H, S, B]
+        auto = formant_base <= 0.0
+        s_n = env_e.shape[1]
+        pv, i5 = (x.reshape(h, s_n) for x in _formant_peak(env_e.reshape(h * s_n, -1)))
+        w_auto = []
+        for i in range(h):
+            wid, fv, fw = _formant_ema(pv[i], i5[i], fv, fw, active & auto)
+            w_auto.append(wid)
+        width = torch.where(auto, torch.stack(w_auto), formant_base * cfg.fft - 0.5)
+        fgain = _formant_gain_from_width(cfg, env_e, width, active, mult, limit,
+                                         formant_factor, formant_compensation)
+
+    xs = _hop_inputs_hoisted(cfg, cur, prev, seeds, time_factor, mult, limit, fgain,
+                             deterministic, seq)
+
+    # stale prediction denominators: hop h sees max(pe_h, pe_{h-1}) + EPS
+    pe = xs["pred_energy"]                                        # [H, S, C, B]
+    prev_pe = torch.cat([state.prev_pred_energy[None], pe[:-1]], dim=0)
+    xs["den"] = torch.maximum(pe, prev_pe) + EPS
+    return xs, (fv, fw)
+
+
 def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
                       time_factor, mult, limit,
                       formant_factor=None, formant_compensation=None, formant_base=None,
@@ -621,39 +682,13 @@ def chain_inputs_hops(cfg: SpectralConfig, state: SpectralState, cur, prev,
     trackers.  ``deterministic``: see :func:`_hop_inputs_hoisted`.
     Returns ``(xs, carried)``: ``xs`` a dict of [H, S, ...] operands
     (including ``den``), ``carried = (rng_final, f_value_ema,
-    f_weighted_ema)``."""
-    h = cur.shape[0]
-    n_draws = 2 * cfg.bands - 2
-    _, hop_pows = _minstd_tables(n_draws, h, cur.device)
-    seeds_all = _modmul31(state.rng[None, :], hop_pows[:, None])  # [H+1, S]
-    use = time_factor > 2.0
-    seeds = torch.where(use[None, :], seeds_all[:h], state.rng[None, :])
-    rng_final = torch.where(use, seeds_all[h], state.rng)
-
-    fgain = None
-    fv, fw = state.f_value_ema, state.f_weighted_ema
-    if cfg.formants and formant_factor is not None:
-        active = (formant_factor != 1.0) | ((formant_compensation != 0.0) & (mult != 1.0))
-        env_e = torch.sum(torch.square(torch.abs(cur)), dim=2)    # [H, S, B]
-        auto = formant_base <= 0.0
-        s_n = env_e.shape[1]
-        pv, i5 = (x.reshape(h, s_n) for x in _formant_peak(env_e.reshape(h * s_n, -1)))
-        w_auto = []
-        for i in range(h):
-            wid, fv, fw = _formant_ema(pv[i], i5[i], fv, fw, active & auto)
-            w_auto.append(wid)
-        width = torch.where(auto, torch.stack(w_auto), formant_base * cfg.fft - 0.5)
-        fgain = _formant_gain_from_width(cfg, env_e, width, active, mult, limit,
-                                         formant_factor, formant_compensation)
-
-    xs = _hop_inputs_hoisted(cfg, cur, prev, seeds, time_factor, mult, limit, fgain,
-                             deterministic)
-
-    # stale prediction denominators: hop h sees max(pe_h, pe_{h-1}) + EPS
-    pe = xs["pred_energy"]                                        # [H, S, C, B]
-    prev_pe = torch.cat([state.prev_pred_energy[None], pe[:-1]], dim=0)
-    xs["den"] = torch.maximum(pe, prev_pe) + EPS
-    return xs, (rng_final, fv, fw)
+    f_weighted_ema)``.  The composition of :func:`minstd_hops` and
+    :func:`chain_inputs_drawn`, which the pool step runs apart."""
+    draws = minstd_hops(cfg, state.rng, time_factor, cur.shape[0], deterministic)
+    xs, (fv, fw) = chain_inputs_drawn(cfg, state, cur, prev, time_factor, mult, limit,
+                                      formant_factor, formant_compensation, formant_base,
+                                      deterministic, draws)
+    return xs, (draws[2], fv, fw)
 
 
 def _div_real(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.config import StretchConfig, block_interval
 
 __all__ = ["VoicePreset", "KIOSK_ENGINE_A", "KIOSK_ENGINE_B", "DEV_SINGLE", "PRESETS"]
 
@@ -39,11 +39,11 @@ class VoicePreset:
     max_rate: float = 2.0
 
     def config(self, channels: int = 2, sample_rate: float = 44100.0) -> StretchConfig:
-        block = round(self.block_ms / 1000.0 * sample_rate)
+        block, interval = block_interval(self.block_ms, self.overlap, sample_rate)
         return StretchConfig(
             channels=channels,
             block=block,
-            interval=max(1, round(block / self.overlap)),
+            interval=interval,
             split_computation=self.split_computation,
         )
 

@@ -166,7 +166,16 @@ class StreamPool:
     Slots are named (defaults "s00"..., or pass ``names``).  ``engine``:
     "fast" (hop-parallel, ``engine/core.py``) or "fidelity" (blob-exact,
     ``engine/spectral.py``).  It runs on
-    ``device``, the card unless the caller passes another."""
+    ``device``, the card unless the caller passes another.
+
+    The geometry: with neither ``config`` nor ``block``/``interval`` the
+    120/30 ms preset.  ``block`` and ``interval`` (samples, given
+    together, never with ``config``) are a deployment's own sizes: the
+    fidelity engine runs them exactly as given, as the blob does (the
+    kiosk's 200/200 ms: 8820/8820, FFT 10240); the fast engine builds its
+    ``StretchConfig`` from them, which rounds the block onto the FFT grid.
+    A given ``config`` runs as it is, its rounded block included (the
+    JAX pool's geometry)."""
 
     def __init__(
         self,
@@ -180,29 +189,40 @@ class StreamPool:
         engine: str = "fast",
         max_rate: float = 2.0,
         device=DEFAULT_DEVICE,
+        block: int | None = None,
+        interval: int | None = None,
     ) -> None:
         if engine not in ("fast", "fidelity"):
             raise ValueError(f"unknown engine {engine!r}")
+        if (block is None) != (interval is None):
+            raise ValueError(f"block={block} and interval={interval}: give both or neither")
+        if block is not None and config is not None:
+            raise ValueError("give a config or block and interval, not both")
         self.engine = engine
         self.device = resolve_device(device)
         self.clamps = dict(CONTROL_CLAMPS)
         self.clamps["rate"] = (CONTROL_CLAMPS["rate"][0], float(max_rate))
         self.sample_rate = float(sample_rate)
-        self.config = config or preset_default(channels, sample_rate)
-        if engine == "fidelity":
+        if block is not None:
+            raw = (int(block), int(interval))
+            config = StretchConfig(channels=channels, block=raw[0], interval=raw[1])
+        elif config is not None:
             # a given StretchConfig has its block already rounded onto the
-            # FFT grid (engine/config.py); taken as it is, for parity with
-            # the JAX pool (ROADMAP "Faults found")
-            block = round(sample_rate * 0.12) if config is None else config.block
-            interval = round(sample_rate * 0.03) if config is None else config.interval
-            self.scfg = SpectralConfig(channels, block, interval,
-                                       split=self.config.split_computation)
+            # FFT grid (engine/config.py); the fidelity pool takes it as it
+            # is, for parity with the JAX pool
+            raw = (config.block, config.interval)
+        else:
+            config = preset_default(channels, sample_rate)
+            raw = (round(sample_rate * 0.12), round(sample_rate * 0.03))
+        self.config = config
+        if engine == "fidelity":
+            self.scfg = SpectralConfig(channels, *raw, split=config.split_computation)
         self.capacity = capacity
         self.hops_per_step = hops_per_step
         self.max_track = int(max_track_sec * sample_rate)
         # frame-end sample indices ride the packed float32 array; float32
         # is integer-exact only below 2**24 (~380 s at 44.1 kHz)
-        if self.max_track + self.config.block >= 2**24:
+        if self.max_track + self._sizes[0] >= 2**24:
             raise ValueError(
                 f"max_track_sec={max_track_sec} exceeds float32-exact frame "
                 f"positioning (track + block must stay < 2**24 samples)"

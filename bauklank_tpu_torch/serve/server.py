@@ -69,6 +69,7 @@ import threading
 import time
 from typing import Iterable
 
+from bauklank_tpu_torch.engine.config import block_interval
 from bauklank_tpu_torch.serve import protocol
 from bauklank_tpu_torch.serve.pool import StreamPool
 from bauklank_tpu_torch.serve.serial import (
@@ -611,7 +612,8 @@ class ControlServer:
 
 def build_parser() -> argparse.ArgumentParser:
     """CLI mirrors the reference flags (server-multi.py:101-148), plus
-    ``--device``.
+    ``--device``, and ``--block-ms`` and ``--overlap`` (a ``--pool
+    stream`` pool's own geometry; ``_parse_args`` refuses them elsewhere).
 
     Exposed (rather than inlined in ``_parse_args``) so tests can assert
     the outer ``bauklank_tpu_torch.cli`` serve subparser accepts the same
@@ -641,11 +643,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=DEFAULT_DEVICE,
                     help="the device every pool runs on (default cuda; "
                          "cpu runs the kernels' plain versions)")
+    ap.add_argument("--block-ms", type=float, default=0.0,
+                    help="--pool stream: the block in ms, unrounded for the fidelity "
+                         "engine (the kiosk's 200); 0 = the 120/30 ms preset")
+    ap.add_argument("--overlap", type=float, default=0.0,
+                    help="with --block-ms: block over interval (the kiosk's 1); "
+                         "0 = the preset's 4")
     return ap
 
 
 def _parse_args(argv=None):
-    return build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.overlap and not args.block_ms:
+        ap.error("--overlap sizes the interval from --block-ms: give both")
+    if args.block_ms and args.pool != "stream":
+        ap.error("--block-ms sizes a --pool stream pool; a unified pool sizes each "
+                 "voice by its own blockMs")
+    return args
 
 
 def build_server(args: argparse.Namespace, **server_kw) -> ControlServer:
@@ -666,9 +681,13 @@ def build_server(args: argparse.Namespace, **server_kw) -> ControlServer:
             pool = UnifiedPool(names=slots[: args.pool_capacity],
                                pipeline_fetch=True, engine=args.engine, device=device)
         else:
+            geometry = {}
+            if args.block_ms:
+                block, interval = block_interval(args.block_ms, args.overlap or 4.0, 44100.0)
+                geometry = dict(block=block, interval=interval)
             pool = StreamPool(capacity=args.pool_capacity,
                               names=slots[: args.pool_capacity],
-                              engine=args.engine, device=device)
+                              engine=args.engine, device=device, **geometry)
     return ControlServer(pool=pool, engine_slots=slots,
                          ws_host=args.ws_host, ws_port=args.ws_port,
                          serial_log=args.serial_log,

@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.config import StretchConfig, block_interval
 from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.serve.livepool import LivePool
@@ -171,10 +171,7 @@ class UnifiedPool:
 
     # ------------------------------------------------------------ lifecycle
     def _key_for(self, v: _Voice) -> tuple:
-        sr = self.sample_rate
-        block = round(sr * v.block_ms / 1000.0)
-        # intervalMs = blockMs / overlap
-        interval = max(1, round(block / v.overlap))
+        block, interval = block_interval(v.block_ms, v.overlap, self.sample_rate)
         return (v.mode, block, interval, v.split)
 
     def _place(self, v: _Voice) -> None:

@@ -378,14 +378,13 @@ def make_pool(kind: str, device: str):
     """The fidelity preset serving pool (S=128, H=8, 120/30 ms; "preset"
     and "preset-fused" build the same pool, the latter is stepped with the
     fused fetch switched on), the
-    fidelity kiosk pool (S=64, H=4, StretchConfig(8820, 8820) as the
-    unified pool builds it) or the fast preset pool (S=128, H=32,
+    fidelity kiosk pool (S=64, H=4, block and interval 8820 unrounded, as
+    the kiosk's deployment runs it) or the fast preset pool (S=128, H=32,
     120/30 ms, bench.py's fast shape), with tonal tracks loaded, voices
     started and a few ``set`` messages applied."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from golden_wasm import material
 
-    from bauklank_tpu_torch.engine.config import StretchConfig
     from bauklank_tpu_torch.serve import protocol
     from bauklank_tpu_torch.serve.pool import StreamPool
 
@@ -398,7 +397,7 @@ def make_pool(kind: str, device: str):
         tones = np.linspace(-12.0, 12.0, 128)[np.random.default_rng(0).permutation(128)]
     else:
         pool = StreamPool(capacity=64, hops_per_step=4, engine="fidelity", device=device,
-                          config=StretchConfig(block=8820, interval=8820))
+                          block=8820, interval=8820)
         rates = np.full(64, 0.001)
         tones = np.zeros(64)
     x = material.case_input(1.0, 2, seconds=6.0)[:, : int(6 * SR)]

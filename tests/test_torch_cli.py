@@ -2,7 +2,8 @@
 server's own parser, against the JAX package's.
 
 The outer ``serve`` subparser and the inner ``serve/server.py`` parser
-take the same flags, which are the JAX flag set plus ``--device``;
+take the same flags, which are the JAX flag set plus ``--device``,
+``--block-ms`` and ``--overlap``;
 ``_cmd_serve`` forwards every one; ``main`` builds the requested pool and
 engine on ``--device cpu`` and raises without a card otherwise (before
 any port is bound).  ``stretch`` on the CPU is held to the JAX CLI's
@@ -48,8 +49,9 @@ def test_serve_parsers_accept_the_jax_flags_and_device():
     inner = _option_strings(server.build_parser())
     outer = _option_strings(_serve_subparser(cli))
     assert inner == outer, (sorted(inner - outer), sorted(outer - inner))
-    assert inner == _option_strings(jserver.build_parser()) | {"--device"}
-    assert _option_strings(_serve_subparser(jcli)) | {"--device"} == outer
+    ours = {"--device", "--block-ms", "--overlap"}
+    assert inner == _option_strings(jserver.build_parser()) | ours
+    assert _option_strings(_serve_subparser(jcli)) | ours == outer
     assert server.build_parser().parse_args([]).device == "cuda"
 
 
@@ -78,7 +80,8 @@ def test_cmd_serve_forwards_every_flag(monkeypatch):
         "engine_count": 2, "slot": "B", "ws_host": "127.0.0.1", "ws_port": 9100,
         "startup_log_level": "debug", "run_log_level": "warning", "serial_log": "full",
         "serial_exclude": ["/dev/ttyX"], "no_serial_scan": True, "pool_capacity": 2,
-        "pool": "unified", "engine": "fidelity", "device": "cpu"}
+        "pool": "unified", "engine": "fidelity", "device": "cpu", "block_ms": 0.0,
+        "overlap": 0.0}
     # every option that takes one value is forwarded even at its default (a
     # flag and a repeatable option only when given, as above)
     cli.main(["serve"])
@@ -117,6 +120,32 @@ def test_serve_main_builds_the_requested_pool_on_the_cpu(runs, pool_kind, engine
         assert pool.pipeline_fetch and sorted(pool.voices) == ["A", "B"]
     else:
         assert [s.name for s in pool.slots] == ["A", "B"]
+
+
+@pytest.mark.parametrize("engine, sizes", [("fidelity", (8820, 8820)), ("fast", (9216, 8820))])
+def test_serve_block_ms_and_overlap_give_the_stream_pool_its_geometry(runs, engine, sizes):
+    """The kiosk's 200 ms at overlap 1: the fidelity pool runs it raw, the
+    fast one rounds the block; ``--block-ms`` alone takes the preset's
+    overlap of 4."""
+    cli.main(["serve", "--pool-capacity", "1", "--no-serial-scan", "--engine", engine,
+              "--device", "cpu", "--block-ms", "200", "--overlap", "1"])
+    assert runs[0].pool._sizes[:2] == sizes
+    cli.main(["serve", "--pool-capacity", "1", "--no-serial-scan", "--engine", engine,
+              "--device", "cpu", "--block-ms", "200"])
+    assert runs[1].pool._sizes[1] == 2205
+
+
+@pytest.mark.parametrize("argv", [["--overlap", "1"],
+                                  ["--block-ms", "200", "--pool", "unified"]])
+def test_serve_refuses_a_geometry_it_would_not_run(runs, argv, capsys):
+    """``--overlap`` without ``--block-ms``, and ``--block-ms`` for a
+    unified pool (which sizes each voice by its own blockMs), exit before
+    any pool is built."""
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["serve", "--pool-capacity", "1", "--no-serial-scan", "--device", "cpu",
+                  *argv])
+    assert exc.value.code == 2 and "--block-ms" in capsys.readouterr().err
+    assert runs == []
 
 
 def test_serve_raises_without_a_card_before_binding(runs, monkeypatch):
