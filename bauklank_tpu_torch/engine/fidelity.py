@@ -70,6 +70,7 @@ __all__ = [
     "synthesise_frames",
     "init_fidelity_state",
     "init_batched_fidelity_state",
+    "fidelity_stages",
     "batched_fidelity_chunk",
     "batched_fidelity_chunk_scan",
     "fidelity_chunk",
@@ -232,11 +233,65 @@ def _hop_loop(cfg: SpectralConfig, prev_out: torch.Tensor, xs: dict) -> torch.Te
     return torch.stack(outs, dim=1)
 
 
+def fidelity_stages(cfg: SpectralConfig, states, audios, ends, tf, mult, limit, active,
+                    formant_factor=None, formant_compensation=None, formant_base=None,
+                    coupled: bool = False, deterministic: bool | None = None):
+    """:func:`batched_fidelity_chunk`'s stages, in step order: a list of
+    (range name, stage), each stage a function of no arguments that reads
+    what the stages before it left in the dict ``v`` and leaves its own
+    results there.  Returns (v, stages); once every stage has run,
+    ``v["states"]`` and ``v["emit"]`` are the chunk's results.
+
+    The stages are apart so that a caller can run each inside its range
+    or capture each as a CUDA graph of its own (``serve/graphs.py``)."""
+    spec_states, tails = states
+    h = ends.shape[1]
+    v = {}
+
+    def analyse():
+        v["cur"], v["prev"] = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
+
+    def minstd():
+        v["draws"] = minstd_hops(cfg, spec_states.rng, tf, h, deterministic)
+
+    def chain_inputs():
+        v["xs"], v["fv_fw"] = chain_inputs_drawn(
+            cfg, spec_states, v["cur"], v["prev"], tf, mult, limit,
+            formant_factor, formant_compensation, formant_base, deterministic, v["draws"])
+
+    def hop_loop():
+        xs, (fv, fw) = v["xs"], v["fv_fw"]
+        v["outs"] = outs = _hop_loop(cfg, spec_states.prev_output, xs)   # [S, H, C, B]
+        v["new_spec"] = SpectralState(
+            prev_output=outs[:, -1],
+            prev_pred_energy=xs["pred_energy"][-1],
+            rng=v["draws"][2],
+            f_value_ema=fv,
+            f_weighted_ema=fw,
+        )
+
+    def synthesis():
+        v["emit"], v["new_tails"] = _synthesis(cfg, v["outs"], tails, active)
+
+    def carry():
+        v["states"] = _carry((v["new_spec"], v["new_tails"]), states, active)
+
+    # outside the deterministic regime the MINSTD seeds, draw streams and
+    # carried state are a stage of their own
+    return v, [("fidelity.analyse", analyse),
+               ("fidelity.chain_inputs" if deterministic else "fidelity.minstd", minstd),
+               ("fidelity.chain_inputs", chain_inputs),
+               ("fidelity.hop_loop", hop_loop),
+               ("fidelity.synthesis", synthesis),
+               ("fidelity.carry", carry)]
+
+
 def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, limit,
                            active, formant_factor=None, formant_compensation=None,
                            formant_base=None, coupled: bool = False,
                            deterministic: bool | None = None):
-    """Whole-pool fidelity step, hop-parallel form.
+    """Whole-pool fidelity step, hop-parallel form: the stages of
+    :func:`fidelity_stages`, each inside its range.
 
     states = (SpectralState with a leading [S] axis, tails [S, C, block +
     interval]); audios [S, C, T] f32; ends [S, H] int frame ends; tf, mult,
@@ -248,48 +303,42 @@ def batched_fidelity_chunk(cfg: SpectralConfig, states, audios, ends, tf, mult, 
     factor <= 2 (``engine.spectral._hop_inputs_hoisted``).  Returns
     ((new_spec_state, new_tails), emit [S, C, H * interval]).  Inactive
     streams keep their state frozen and emit silence."""
-    spec_states, _ = states
-    with span("fidelity.analyse"):
-        cur, prev = _analyse_cur_prev(cfg, audios, ends, full_prev=coupled)
-    # outside the deterministic regime the MINSTD seeds, draw streams and
-    # carried state are a stage of their own
-    with span("fidelity.chain_inputs" if deterministic else "fidelity.minstd"):
-        draws = minstd_hops(cfg, spec_states.rng, tf, ends.shape[1], deterministic)
-    with span("fidelity.chain_inputs"):
-        xs, (fv, fw) = chain_inputs_drawn(
-            cfg, spec_states, cur, prev, tf, mult, limit,
-            formant_factor, formant_compensation, formant_base, deterministic, draws)
-    rng_final = draws[2]
-    with span("fidelity.hop_loop"):
-        outs = _hop_loop(cfg, spec_states.prev_output, xs)          # [S, H, C, B]
-        new_spec = SpectralState(
-            prev_output=outs[:, -1],
-            prev_pred_energy=xs["pred_energy"][-1],
-            rng=rng_final,
-            f_value_ema=fv,
-            f_weighted_ema=fw,
-        )
-    return _finish(cfg, outs, new_spec, states, active)
+    v, stages = fidelity_stages(cfg, states, audios, ends, tf, mult, limit, active,
+                                formant_factor, formant_compensation, formant_base,
+                                coupled, deterministic)
+    for name, stage in stages:
+        with span(name):
+            stage()
+    return v["states"], v["emit"]
+
+
+def _synthesis(cfg: SpectralConfig, outs, tails, active):
+    """Synthesis and overlap-add of every hop's output ``outs`` [S, H, C,
+    B] with the carried ``tails``: (emit [S, C, H * interval], new tails)."""
+    frames = synthesise_frames(cfg, outs)                           # [S, C, H, block]
+    return _ola_emit(cfg, frames, tails, active, outs.shape[1])
+
+
+def _carry(new, states, active):
+    """The carried state: ``new`` (spec_state, tails) where a stream is
+    active, ``states`` (the step's input) frozen where not."""
+    keep = active > 0
+
+    def freeze(a, old):
+        return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)), a, old)
+
+    (spec, tails), (old_spec, old_tails) = new, states
+    return (SpectralState(*[freeze(a, b) for a, b in zip(spec, old_spec)]),
+            freeze(tails, old_tails))
 
 
 def _finish(cfg: SpectralConfig, outs, new_spec: SpectralState, states, active):
-    """Synthesis and overlap-add of every hop's output ``outs`` [S, H, C,
-    B], then the carried state: ``new_spec`` and the new tails where a
-    stream is active, ``states`` (the step's input) frozen where not.
-    Returns ((spec_state, tails), emit [S, C, H * interval])."""
-    spec_states, tails = states
+    """:func:`_synthesis` and :func:`_carry` inside their ranges.  Returns
+    ((spec_state, tails), emit [S, C, H * interval])."""
     with span("fidelity.synthesis"):
-        frames = synthesise_frames(cfg, outs)                       # [S, C, H, block]
-        emit, new_tails = _ola_emit(cfg, frames, tails, active, outs.shape[1])
-
+        emit, new_tails = _synthesis(cfg, outs, states[1], active)
     with span("fidelity.carry"):
-        keep = active > 0
-
-        def freeze(new, old):
-            return torch.where(keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-
-        new_spec = SpectralState(*[freeze(a, b) for a, b in zip(new_spec, spec_states)])
-        return (new_spec, freeze(new_tails, tails)), emit
+        return _carry((new_spec, new_tails), states, active), emit
 
 
 def batched_fidelity_chunk_scan(cfg: SpectralConfig, states, audios, ends, tf, mult, limit,

@@ -10,8 +10,11 @@ pair of stage 2 and of a formant voice's envelope) replaces no TPU
 kernel: JAX runs it as ``lax.associative_scan``.  A wrapper checks its operands,
 sends a CPU tensor to the plain version, and launches the CUDA kernel on
 a CUDA tensor, raising on any launch error; it never falls back.
-:data:`LAUNCHES` counts kernel launches, one per launch and nowhere else,
-so a run can show that its main path went through the kernels.
+:data:`LAUNCHES` counts the kernel launches that the host issues, one per
+launch and nowhere else, so a run can show that its main path went
+through the kernels.  A launch issued into a CUDA graph being captured
+counts once; the graph's replays run it again and count nothing
+(``serve/graphs.py``): ``torch.profiler`` sees those.
 """
 
 from __future__ import annotations

@@ -22,8 +22,21 @@ master's copy to the host; also around :meth:`drain`); the packed
 array's copy, the tracks' copy and the mixdown are ``pool.step``'s own.
 :meth:`StreamPool.metrics` carries the pool's counters beside the step
 times: ``steps``, ``late``, ``minstd_steps``, ``formant_steps``,
-``audio_uploads`` and the process-wide ``table_builds``; the server's
-``/status`` and heartbeat publish them.
+``audio_uploads``, ``graph_captures``, ``graph_replays`` and the
+process-wide ``table_builds``; the server's ``/status`` and heartbeat
+publish them.
+
+A fidelity pool on the card replays its step as CUDA graphs
+(``serve/graphs.py``), captured once per step key (capacity, hops a
+step, regime, formant gate, the fused-fetch switch) after that key's
+first, eager step.  The step goes through :func:`_pool_step_fidelity`
+either way.  The state and the tracks stay in the pool's own tensors,
+which the graphs read: each step's new state is copied into them, and a
+changed track into the tracks' tensor.  New tensors (``grow``, a
+checkpoint's load, tracks of another shape) make the graphs capture
+again.  ``metrics()`` counts them: ``graph_captures`` and
+``graph_replays``.  On the CPU, and for the fast engine, the step runs
+eagerly as it always has.
 
 ``step(fetch="pipeline")`` overlaps the master's copy to the host with
 the next steps: each master is copied into one of ``pipeline_depth + 1``
@@ -52,15 +65,17 @@ from bauklank_tpu_torch.engine.batched import (
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_default
 from bauklank_tpu_torch.engine.fidelity import (
     SpectralConfig,
-    batched_fidelity_chunk,
+    fidelity_stages,
     init_batched_fidelity_state,
 )
 from bauklank_tpu_torch.engine.params import StretchParams
+from bauklank_tpu_torch.engine.spectral import chainfetch_enabled
 from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
+from bauklank_tpu_torch.serve.graphs import StepGraphs, eager
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 from bauklank_tpu_torch.utils.metrics import StepTimer, span, table_builds
-from bauklank_tpu_torch.utils.tree import tree_map
+from bauklank_tpu_torch.utils.tree import keyed_leaves, tree_map
 
 __all__ = ["StreamPool", "VoiceSlot", "CONTROL_CLAMPS", "COUNTERS"]
 
@@ -88,7 +103,8 @@ _NUMERIC_KEYS = (_TIMEMAP_KEYS | {"volume", "volumePercent", "pan"}) - {
 }
 
 # the counters of StreamPool.metrics() that a UnifiedPool sums over its buckets
-COUNTERS = ("steps", "late", "minstd_steps", "formant_steps", "audio_uploads")
+COUNTERS = ("steps", "late", "minstd_steps", "formant_steps", "audio_uploads",
+            "graph_captures", "graph_replays")
 
 
 @dataclasses.dataclass
@@ -129,12 +145,11 @@ def _pool_step(config: StretchConfig, states, audios, packed):
     return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
 
 
-def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
-                        deterministic: bool | None = None):
-    """One fidelity pool step from the same packed layout as
-    :func:`_pool_step`.  With ``scfg.formants`` the packed formant fields
-    drive the blob's step 5 per stream.  ``deterministic``: the host's
-    word that every voice is at time factor <= 2 (:func:`_deterministic`)."""
+def _fidelity_args(scfg: SpectralConfig, packed):
+    """The engine's operands of a fidelity pool step from the packed array
+    (the layout of :func:`_pool_step`): (ends, tf, mult, limit, active,
+    and the three formant controls, or None where ``scfg.formants`` is
+    off)."""
     h = packed.shape[1] - 11
     ends = packed[:, :h].to(torch.int32)
     params = StretchParams.unpack(packed, h)
@@ -144,10 +159,43 @@ def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
     limit = params.tonality / torch.sqrt(params.transpose_factor)
     formants = ((params.formant_factor, params.formant_compensation, params.formant_base)
                 if scfg.formants else (None, None, None))
-    states, out = batched_fidelity_chunk(
-        scfg, states, audios, ends, tf, params.transpose_factor, limit, params.active,
-        *formants, deterministic=deterministic)
-    return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
+    return (ends, tf, params.transpose_factor, limit, params.active, *formants)
+
+
+def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
+                        deterministic: bool | None = None, *, graphs: StepGraphs | None = None):
+    """One fidelity pool step from the same packed layout as
+    :func:`_pool_step`.  With ``scfg.formants`` the packed formant fields
+    drive the blob's step 5 per stream.  ``deterministic``: the host's
+    word that every voice is at time factor <= 2 (:func:`_deterministic`).
+    ``graphs``: the pool's step graphs on the card, with ``packed`` still
+    on the host; the step's stages are then replayed as CUDA graphs, one
+    set per step key (``serve/graphs.py``), and the new state returned is
+    the graphs' memory, which the caller copies into ``states`` before the
+    next step.  Returns (states, master, streams)."""
+    if graphs is None:
+        return _issue_fidelity(scfg, states, audios, packed, deterministic, eager)
+    key = (scfg, tuple(packed.shape), deterministic, chainfetch_enabled())
+    operands = [leaf for _, leaf in keyed_leaves(states)] + [audios]
+    return graphs.step(key, packed, operands, lambda run, dev: _issue_fidelity(
+        scfg, states, audios, dev, deterministic, run))
+
+
+def _issue_fidelity(scfg: SpectralConfig, states, audios, packed, deterministic, run):
+    """:func:`_pool_step_fidelity`'s work as stages handed to ``run(range
+    name or None, stage)`` in step order: the unpacking, the engine's
+    stages in their ``fidelity.*`` ranges, the mixdown (the unpacking and
+    the mixdown with no range of their own: they are ``pool.step``'s).
+    Returns (states, master, streams) once every stage has run."""
+    h = packed.shape[1] - 11
+    out: dict = {}
+    run(None, lambda: out.update(args=_fidelity_args(scfg, packed)))
+    v, stages = fidelity_stages(scfg, states, audios, *out["args"], deterministic=deterministic)
+    for name, stage in stages:
+        run(name, stage)
+    run(None, lambda: out.update(master=_mixdown(
+        v["emit"], packed[:, h + 7: h + 9], packed[:, h + 9: h + 11])))
+    return v["states"], out["master"], v["emit"]
 
 
 def _deterministic(rates: np.ndarray, interval: int) -> bool:
@@ -231,6 +279,10 @@ class StreamPool:
         self._by_name = {s.name: i for i, s in enumerate(self.slots)}
         self._audio_host = np.zeros((capacity, channels, self.max_track), np.float32)
         self._audio_dev: torch.Tensor | None = None
+        self._audio_kept: torch.Tensor | None = None  # the tracks the step graphs read
+        # the fidelity step on the card replays CUDA graphs (serve/graphs.py)
+        self._graphs = (StepGraphs(self.device)
+                        if engine == "fidelity" and self.device.type == "cuda" else None)
         self.states = self._init_states(capacity)
         self.out_pos = 0  # output samples stepped so far
         self._last_streams: torch.Tensor | None = None  # [S, C, n] of the last step
@@ -314,8 +366,18 @@ class StreamPool:
         self.capacity = new_capacity
 
     def _device_audio(self) -> torch.Tensor:
+        """The tracks on the device, copied there again after a change.  A
+        pool with step graphs copies them into the tensor its graphs read
+        where the shape allows (a new tensor makes them capture again)."""
         if self._audio_dev is None:
-            self._audio_dev = torch.from_numpy(self._audio_host).to(self.device)
+            host = torch.from_numpy(self._audio_host)
+            kept = self._audio_kept
+            if kept is not None and kept.shape == host.shape:
+                self._audio_dev = kept.copy_(host)
+            else:
+                self._audio_dev = host.to(self.device)
+                if self._graphs is not None:
+                    self._audio_kept = self._audio_dev
             self.audio_uploads += 1
         return self._audio_dev
 
@@ -438,7 +500,6 @@ class StreamPool:
             with span("pool.pack"):
                 packed = self._packed()
             formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
-            dev_packed = torch.from_numpy(packed).to(self.device)
             if self.engine == "fidelity":
                 # host-side formant gating, as below: the formant chain runs
                 # only in a step where some voice uses a formant control
@@ -446,8 +507,18 @@ class StreamPool:
                 deterministic = _deterministic(packed[:, h + 1], scfg.interval)
                 self.minstd_steps += not deterministic
                 self.formant_steps += scfg.formants
-                self.states, master, streams = _pool_step_fidelity(
-                    scfg, self.states, self._device_audio(), dev_packed, deterministic)
+                audios, graphs = self._device_audio(), self._graphs
+                if graphs is None:
+                    self.states, master, streams = _pool_step_fidelity(
+                        scfg, self.states, audios, torch.from_numpy(packed).to(self.device),
+                        deterministic)
+                else:
+                    states, master, streams = _pool_step_fidelity(
+                        scfg, self.states, audios, torch.from_numpy(packed), deterministic,
+                        graphs=graphs)
+                    # the step graphs read the pool's own state tensors
+                    tree_map(lambda mine, new: mine if mine is new else mine.copy_(new),
+                             self.states, states)
             else:
                 # host-side formant gating: when no voice uses formant controls
                 # this step, run the step without the formant chain (same state;
@@ -457,7 +528,8 @@ class StreamPool:
                     cfg = formants_off(cfg)
                 self.formant_steps += cfg.formants
                 self.states, master, streams = _pool_step(
-                    cfg, self.states, self._device_audio(), dev_packed)
+                    cfg, self.states, self._device_audio(),
+                    torch.from_numpy(packed).to(self.device))
             self.out_pos += h * interval
             self._last_streams = streams
             if fetch == "pipeline":
@@ -523,7 +595,14 @@ class StreamPool:
         ran the formant chain; ``audio_uploads``, copies of every track
         to the device (one after each batch of track changes); and
         ``table_builds``, constant tables built in the whole process
-        (``utils.metrics.table_builds``), not by this pool alone."""
+        (``utils.metrics.table_builds``), not by this pool alone; and, of
+        a fidelity pool on the card, ``graph_captures``, step keys whose
+        CUDA graphs were captured (again after an operand was replaced),
+        and ``graph_replays``, steps issued as graph replays (both 0
+        elsewhere; ``graph_replays / steps`` is the graphs' hit share)."""
+        graphs = self._graphs
         return dict(self.timer.snapshot(), minstd_steps=self.minstd_steps,
                     formant_steps=self.formant_steps, audio_uploads=self.audio_uploads,
-                    table_builds=table_builds())
+                    table_builds=table_builds(),
+                    graph_captures=graphs.captures if graphs else 0,
+                    graph_replays=graphs.replays if graphs else 0)

@@ -53,7 +53,9 @@ voice past time factor 2 (rate under 0.5: the MINSTD regime, slower);
 ``formant_steps``, steps that ran the formant chain; ``audio_uploads``,
 copies of every track to the card (one after each batch of track
 changes); ``table_builds``, constant tables built in the whole process,
-which should stop rising after a pool's first steps.  A ``UnifiedPool``
+which should stop rising after a pool's first steps; ``graph_captures``
+and ``graph_replays``, a fidelity pool's step graphs on the card
+captured and replayed (``serve/graphs.py``).  A ``UnifiedPool``
 reports its own quanta's ``steps`` and ``late``, its ``buckets``, their
 counters summed under ``bucket_counters``, and ``table_builds``.
 """

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 import time
 from collections import deque
 
@@ -18,10 +19,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-__all__ = ["StepTimer", "RateMeter", "span", "table_cache", "table_builds"]
+__all__ = ["StepTimer", "RateMeter", "span", "table_cache", "table_builds", "tables_read"]
 
 _NO_SPAN = contextlib.nullcontext()
 _TABLE_CACHES: list = []
+_READS = threading.local()      # .into: the list tables_read fills, on this thread
 
 
 def span(name: str):
@@ -113,12 +115,35 @@ class RateMeter:
 def table_cache(maxsize: int):
     """``functools.lru_cache(maxsize)`` for a builder of a constant table
     (windows, twiddles, rotations, MINSTD powers), counted by
-    :func:`table_builds`."""
+    :func:`table_builds`; each table it returns is listed by
+    :func:`tables_read` too."""
     def wrap(fn):
         cached = functools.lru_cache(maxsize=maxsize)(fn)
         _TABLE_CACHES.append(cached)
-        return cached
+
+        @functools.wraps(fn)
+        def read(*args, **kwargs):
+            out = cached(*args, **kwargs)
+            into = getattr(_READS, "into", None)
+            if into is not None:
+                into.append(out)
+            return out
+
+        read.cache_info, read.cache_clear = cached.cache_info, cached.cache_clear
+        return read
     return wrap
+
+
+@contextlib.contextmanager
+def tables_read(into: list):
+    """Append to ``into`` every table that this thread reads from a
+    :func:`table_cache` builder inside the block, built or cached."""
+    prev = getattr(_READS, "into", None)
+    _READS.into = into
+    try:
+        yield into
+    finally:
+        _READS.into = prev
 
 
 def table_builds() -> int:

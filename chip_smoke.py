@@ -54,11 +54,17 @@ Phases (any failure raises and exits non-zero without the result line):
    padded rows), their masters held equal bit for bit; then 5 steps of
    the fidelity preset pool and of the fast pool with a formant voice, and
    ``pallas_gather`` driven directly, once;
-7. where the time goes: a ``torch.profiler`` run of 5 more steps of each
-   pool, split by the step's stages (host and device time each), the
-   PyTorch ops that take most device time inside the gather stage, every
-   op under the fidelity analysis (which must hold no pad), and the
-   card's busy share;
+7. where the time goes: the fidelity pools replay their step graphs
+   (``serve/graphs.py``): each one's untraced step time with graphs, its
+   ``graph_replays / steps``, and an eager twin (the same pool with its
+   graphs taken off, as it stepped before the graphs), timed in the same
+   call, whose master must equal the served one bit for bit, and every
+   op under the twin's fidelity analysis (which must hold no pad); then
+   a ``torch.profiler`` run of 5 more steps of each pool, split by the
+   step's stages (host and device time each), the PyTorch ops that take
+   most device time inside the gather stage, each kernel of the pool's
+   path seen to run its number of times a step, and the card's busy
+   share;
 8. the serving front door, as ``serve/server.py`` builds it: a
    ``UnifiedPool`` with pipelined fetch for each engine (fidelity: 64
    preset and 64 kiosk file voices and 16 live ones; fast: 32, 32 and 8;
@@ -119,6 +125,7 @@ import functools
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1041,12 +1048,66 @@ def step_pool(pool, warm: int, timed: int):
     return dt, master
 
 
-def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> None:
-    """Profile ``steps`` pool steps: the card's busy share, each stage's
-    host and device time (the engine's ``record_function`` ranges), and
-    the kernels that take most device time."""
+def graphs_against_eager(kind: str, pool, served, warm: int, timed: int, card: str) -> None:
+    """A fidelity pool's step graphs against its eager twin: the served
+    steps' time (``served``: ms/step and the timed steps' master, from
+    :func:`serve`), ``graph_replays / steps`` of ``pool``, and a twin from
+    :func:`make_pool` with its graphs taken off (its steps run the eager
+    chain, as the pool stepped before it had graphs), stepped as many
+    times and timed alike, whose master must equal the served one bit for
+    bit.  Then every op under the twin's analysis in one profiled step,
+    which must hold no pad: kernel 1 writes the padded rows (a replay
+    shows no op there, only the graph's launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    graphed_ms, master = served
+    twin = make_pool(kind, "cuda")
+    twin._graphs = None
+    with chainfetch_switch(kind == "preset-fused"):
+        eager_s, eager = step_pool(twin, warm, timed)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            twin.step(fetch=True)
+    if not np.array_equal(eager, master):
+        diff = float(np.abs(eager - master).max())
+        raise AssertionError(f"{kind}: the master with step graphs differs from the eager "
+                             f"step's by {diff}")
+    m = pool.metrics()
+    if not m["graph_replays"] > 0:
+        raise AssertionError(f"{kind}: no step graph replayed ({m})")
+    log(f"[graphs] {kind}: {graphed_ms:.2f} ms/step with step graphs, {eager_s * 1e3:.2f} "
+        f"ms/step eager (untraced, {timed} steps each); graph_replays / steps "
+        f"{m['graph_replays']} / {m['steps']} ({m['graph_replays'] / m['steps']:.1%}), "
+        f"graph_captures {m['graph_captures']}; the masters equal bit for bit over "
+        f"{master.shape[-1]} samples | {card}")
+    below: dict = {}
+
+    def walk(event):
+        for child in event.cpu_children:
+            below[child.name] = below.get(child.name, 0) + 1
+            walk(child)
+
+    for e in prof.events():
+        if e.name == "fidelity.analyse" and e.device_type == torch.autograd.DeviceType.CPU:
+            walk(e)
+    log(f"[graphs] {kind} eager fidelity.analyse, every op below it: " + ", ".join(
+        f"{name} x{n:g}" for name, n in sorted(below.items())))
+    pads = sorted(name for name in below if "pad" in name)
+    if pads:
+        raise AssertionError(f"{kind}: the fidelity analysis ran {pads}")
+    del twin
+    torch.cuda.empty_cache()
+
+
+def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> None:
+    """Profile ``steps`` pool steps: the card's busy share, each stage's
+    host and device time (the engine's ``record_function`` ranges), the
+    kernels that take most device time, and each kernel of the pool's
+    path seen to run its number of times a step (replays included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bauklank_tpu_torch import kernels
 
     with chainfetch_switch(kind == "preset-fused"), \
             profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1080,24 +1141,16 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
     for name, us in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile] {kind} top: {us / steps / 1e3:.3f} ms/step "
             f"({us / steps / 1e3 / busy:.1%}) {name[:90]}")
-    if pool.engine == "fidelity":
-        # every op under the analysis stage: kernel 1 writes the padded rows,
-        # so no pad runs there
-        below: dict = {}
-
-        def walk(event):
-            for child in event.cpu_children:
-                below[child.name] = below.get(child.name, 0) + 1
-                walk(child)
-
-        for e in events:
-            if e.name == "fidelity.analyse" and e.device_type == torch.autograd.DeviceType.CPU:
-                walk(e)
-        log(f"[profile] {kind} fidelity.analyse, every op below it: " + ", ".join(
-            f"{name} x{n / steps:g}" for name, n in sorted(below.items())))
-        pads = sorted(name for name in below if "pad" in name)
-        if pads:
-            raise AssertionError(f"{kind}: the fidelity analysis ran {pads}")
+    # each kernel of the pool's path ran its number of times a step, as the
+    # profiler saw it: a replayed step's kernels are not issued by the host
+    ran = {k: sum(bool(re.search(rf"\b{k}(_\w+)?_kernel", e.name)) for e in dev_events)
+           for k in kernels.LAUNCHES}
+    if ran != {k: PER_STEP[kind].get(k, 0) * steps for k in ran}:
+        raise AssertionError(f"{kind}: the profiler saw {ran} in {steps} steps, not "
+                             f"{steps} x {PER_STEP[kind]}")
+    m = pool.metrics()
+    log(f"[profile] {kind} kernels that ran, as the profiler saw them: {ran} in {steps} "
+        f"steps (graph_replays {m['graph_replays']} of {m['steps']} steps)")
     # the PyTorch ops called directly inside the gather stage, by device time
     stage = GATHER_STAGE[pool.engine]
     inside: dict = {}
@@ -1111,18 +1164,29 @@ def where_time_goes(kind: str, pool, steps: int, step_ms: float, card: str) -> N
         for name, (us, calls) in sorted(inside.items(), key=lambda kv: -kv[1][0])[:10]))
 
 
+def issued_steps(pool, before: dict) -> int:
+    """The steps whose launches the host issued since ``pool.metrics()``
+    read ``before``: each eager step and each capture of step graphs."""
+    m = pool.metrics()
+    return (m["steps"] - before["steps"] - (m["graph_replays"] - before["graph_replays"])
+            + m["graph_captures"] - before["graph_captures"])
+
+
 def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
     """Drive one pool with the launch counts set to 0 just before and read
     just after; fails unless each kernel of the pool's path was launched
-    its number of times a step and no other kernel at all.  Adds the
+    its number of times a step and no other kernel at all: by the host in
+    each step it issued, eagerly or into a graph's capture (a replayed
+    step issues none; :func:`where_time_goes` counts what ran).  Adds the
     counts to ``launches`` and returns (ms/step, the timed steps' master)."""
     from bauklank_tpu_torch import kernels
 
     kernels.reset_launches()
+    before = pool.metrics()
     with chainfetch_switch(kind == "preset-fused"):
         dt, master = step_pool(pool, warm, timed)
     counts = dict(kernels.LAUNCHES)
-    want = {k: PER_STEP[kind].get(k, 0) * (warm + timed) for k in counts}
+    want = {k: PER_STEP[kind].get(k, 0) * issued_steps(pool, before) for k in counts}
     if counts != want:
         raise AssertionError(f"{kind} pool launched {counts}, not {want}")
     for k, v in counts.items():
@@ -2467,14 +2531,17 @@ def main(argv=None) -> int:
         if not pool.apply_set("s05", "formantSemitones", 4.0, lookahead=0.0):
             raise RuntimeError("formant control refused")
         kernels.reset_launches()
+        before = pool.metrics()
         t0 = time.perf_counter()
         masters = [pool.step(fetch=True)[0] for _ in range(5)]
         dt = (time.perf_counter() - t0) / 5
         counts = dict(kernels.LAUNCHES)
+        issued = issued_steps(pool, before)
         if not np.isfinite(np.concatenate(masters, axis=-1)).all():
             raise AssertionError(f"non-finite {kind} master with a formant voice")
-        if counts != {k: 5 * per_step.get(k, 0) for k in counts}:
-            raise AssertionError(f"{kind} formant steps launched {counts}, not 5 x {per_step}")
+        if counts != {k: issued * per_step.get(k, 0) for k in counts}:
+            raise AssertionError(f"{kind} formant steps launched {counts}, not {issued} x "
+                                 f"{per_step}")
         if kind == "preset" and not float(pool.states[0].f_value_ema[5]) > 0:
             raise AssertionError("the formant voice's f0 tracker did not move")
         for k, v in counts.items():
@@ -2501,7 +2568,9 @@ def main(argv=None) -> int:
         f"{tuple(gather_args[0].shape)} at {tuple(gather_args[1].shape)}): launches {counts}")
     del gather_args, out
 
-    # 7. where the time goes
+    # 7. where the time goes: the step graphs against the eager step, then a profile
+    for kind in ("preset", "preset-fused", "kiosk"):
+        graphs_against_eager(kind, pools[kind], served[kind], 2, timed[kind], card)
     for kind, pool in pools.items():
         where_time_goes(kind, pool, 5, step_ms[kind], card)
     del pools, pool

@@ -22,6 +22,7 @@ import asyncio
 import dataclasses
 import json
 import socket
+import time
 import urllib.error
 import urllib.request
 
@@ -63,6 +64,20 @@ def _free_port() -> int:
     return port
 
 
+async def _connect(port: int, seconds: float = 10.0):
+    """A WebSocket client of the server on ``port``, once it listens: the
+    server binds its port some time after its task starts, later on a
+    loaded machine."""
+    deadline = time.monotonic() + seconds
+    while True:
+        try:
+            return await websockets.connect(f"ws://127.0.0.1:{port}")
+        except ConnectionRefusedError:
+            if time.monotonic() > deadline:
+                raise
+            await asyncio.sleep(0.05)
+
+
 async def _end(server, *tasks) -> None:
     server.stop()
     for task in tasks:
@@ -101,7 +116,7 @@ async def _script(server_mod, serial_mod, pool):
     await asyncio.sleep(0.1)
     sets = []
     try:
-        async with websockets.connect(f"ws://127.0.0.1:{port}") as ws:
+        async with await _connect(port) as ws:
             beacons = [json.loads(await asyncio.wait_for(ws.recv(), 2))["type"]
                        for _ in range(3)]
             for ch, key, value in TURNS:

@@ -7,7 +7,9 @@ those of a twin pool stepped directly in the test's thread.  ``analyze``
 runs in other worker threads while steps run: every analysis it returns
 must be that of a finished step (equal to the twin's analysis after one
 of its steps), and every worker thread must see the device's one default
-stream.  The proof at the serving size is ``chip_smoke.py`` phase 9.
+stream.  The pools replay their step graphs (``serve/graphs.py``) after
+the first step, and the served masters equal those of the eager chain
+too.  The proof at the serving size is ``chip_smoke.py`` phase 9.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ from bauklank_tpu_torch import kernels
 from bauklank_tpu_torch.kernels import build
 from bauklank_tpu_torch.serve.pool import StreamPool
 from bauklank_tpu_torch.serve.server import ControlServer
+# tests/util.py, imported by its directory: an installed package named
+# ``tests`` would hide ``tests.util``
+from util import without_graphs
 
 pytestmark = pytest.mark.cuda
 
@@ -57,10 +62,10 @@ def _pool(dev) -> StreamPool:
     return pool
 
 
-def test_render_loop_masters_equal_a_direct_pool(dev):
-    twin = _pool(dev)
-    direct = [twin.step(fetch=True)[0] for _ in range(STEPS)]
-    served, masters = _pool(dev), []
+def _render(served) -> list:
+    """At least ``STEPS`` masters of a ``ControlServer``'s render loop
+    over ``served``."""
+    masters = []
 
     async def scenario():
         srv = ControlServer(pool=served, engine_slots=["A", "B"], audio_sink=masters.append,
@@ -73,9 +78,16 @@ def test_render_loop_masters_equal_a_direct_pool(dev):
         srv.stop()
         await asyncio.wait_for(task, 30)
 
-    kernels.reset_launches()
     asyncio.run(scenario())
     assert len(masters) >= STEPS
+    return masters
+
+
+def test_render_loop_masters_equal_a_direct_pool(dev):
+    twin = _pool(dev)
+    direct = [twin.step(fetch=True)[0] for _ in range(STEPS)]
+    kernels.reset_launches()
+    masters = _render(_pool(dev))
     for want, got in zip(direct, masters):
         assert isinstance(got, np.ndarray)
         np.testing.assert_array_equal(got, want)
@@ -83,6 +95,20 @@ def test_render_loop_masters_equal_a_direct_pool(dev):
     assert np.abs(np.concatenate(masters[:STEPS], axis=1)).max() > 0
     for k in ("frames_windowed", "smooth_pair", "comp_cumsum", "frac_gather", "band_chain"):
         assert kernels.LAUNCHES[k] > 0, k
+
+
+def test_render_loop_with_graphs_equals_the_eager_step(dev):
+    """The served pool replays its step graphs from the loop's worker
+    threads; its masters equal those of a twin without graphs, stepped in
+    this thread."""
+    twin = without_graphs(_pool(dev))
+    direct = [twin.step(fetch=True)[0] for _ in range(STEPS)]
+    served = _pool(dev)
+    masters = _render(served)
+    m = served.metrics()
+    assert m["graph_captures"] == 1 and m["graph_replays"] == m["steps"] - 1 >= STEPS - 1
+    for want, got in zip(direct, masters):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_concurrent_analyze_reads_a_finished_step(dev):
@@ -102,6 +128,7 @@ def test_concurrent_analyze_reads_a_finished_step(dev):
             f.result(timeout=120)
         seen = [r.result(timeout=120) for r in reads]
     assert set(streams) == {main_stream}
+    assert pool.metrics()["graph_replays"] == STEPS - 1
     got = [json.dumps(a, sort_keys=True) for a in seen if a is not None]
     assert got, "no analysis ran after a step"
     for a in got:

@@ -170,8 +170,10 @@ def test_table_builders_are_every_table_cache_of_ops_and_engine():
     for pkg in (ops_pkg, engine_pkg):
         for info in pkgutil.iter_modules(pkg.__path__):
             mod = importlib.import_module(f"{pkg.__name__}.{info.name}")
+            # a table_cache is an lru_cache behind a wrapper with its cache_info
             caches |= {f"{mod.__name__}.{n}" for n, f in vars(mod).items()
-                       if isinstance(f, functools._lru_cache_wrapper)
+                       if (isinstance(f, functools._lru_cache_wrapper)
+                           or callable(getattr(f, "cache_info", None)))
                        and f.__module__ == mod.__name__}
     counted = {f"{f.__module__}.{f.__name__}" for f in metrics._TABLE_CACHES}
     assert caches - counted == {"bauklank_tpu_torch.ops.mdft._libm",

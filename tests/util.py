@@ -67,3 +67,12 @@ def dominant_freq(x: np.ndarray, sample_rate: float = 1.0) -> float:
 def tone(freq: float, n: int, sample_rate: float = 1.0, phase: float = 0.3):
     t = np.arange(n, dtype=np.float64)
     return np.sin(2 * np.pi * freq / sample_rate * t + phase).astype(np.float32)
+
+
+def without_graphs(pool):
+    """``pool`` with its step graphs taken off (``serve/graphs.py``): its
+    steps run the eager chain through ``serve.pool._pool_step_fidelity``
+    as a pool off the card does, with the pool's own packing, regime and
+    formant gate.  Returns ``pool``."""
+    pool._graphs = None
+    return pool
