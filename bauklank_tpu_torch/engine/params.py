@@ -3,7 +3,7 @@
 The runtime controls the reference sets every render quantum from the
 current time-map segment.  Every field is a float32 tensor: a scalar for
 one stream from :meth:`StretchParams.make`, a leading stream axis after
-:meth:`StretchParams.stack` or :meth:`StretchParams.unpack` (the pool's
+:meth:`StretchParams.stack` or ``engine.drive.unpack`` (the pool's
 per-step ``[S, H + 11]`` array).  Frequencies are normalized to
 cycles/sample (Hz / sample_rate).
 """
@@ -75,8 +75,3 @@ class StretchParams(NamedTuple):
     def stack(cls, params_list) -> "StretchParams":
         """Stack single-stream params into batched [streams] fields."""
         return cls(*[torch.stack([getattr(p, f) for p in params_list]) for f in cls._fields])
-
-    @classmethod
-    def unpack(cls, packed: torch.Tensor, hops: int) -> "StretchParams":
-        """Fields ``[H:H+7]`` of the pool's packed ``[S, H + 11]`` array."""
-        return cls(*[packed[:, hops + i] for i in range(7)])

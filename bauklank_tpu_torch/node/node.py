@@ -19,42 +19,33 @@ from typing import Callable
 import numpy as np
 import torch
 
-from bauklank_tpu_torch.engine.batched import formants_off
-from bauklank_tpu_torch.engine.config import StretchConfig, preset_cheaper, preset_default
-from bauklank_tpu_torch.engine.core import flush as engine_flush
-from bauklank_tpu_torch.engine.core import init_state, process_chunk
-from bauklank_tpu_torch.engine.fidelity import SpectralConfig, fidelity_chunk, init_fidelity_state
+from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.core import process_chunk
+from bauklank_tpu_torch.engine.drive import (deterministic_regime, fidelity_operands, geometry,
+                                              packed_rows, unpack)
+from bauklank_tpu_torch.engine.fidelity import SpectralConfig, fidelity_chunk
 from bauklank_tpu_torch.engine.live import init_live_state, process_live
 from bauklank_tpu_torch.engine.params import StretchParams
 from bauklank_tpu_torch.schedule.timemap import Segment, TimeMap
-from bauklank_tpu_torch.serve.pool import _deterministic
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["StretchNode"]
 
 
 def _chunk(config: StretchConfig, state, audio, packed):
-    """The fast engine's chunk from ``packed`` [H + 7] float32: hop frame
-    ends, then the seven StretchParams fields (one host-to-device copy)."""
-    h = packed.shape[0] - 7
-    ends = packed[None, :h].to(torch.int32)
-    return process_chunk(config, state, audio[None], ends, StretchParams.unpack(packed[None], h))
+    """The fast engine's chunk from ``packed`` [H + 7] float32 (frame ends
+    and the seven fields, ``engine.drive.unpack``).  Returns (state, out
+    [C, H * interval])."""
+    ends, params, _, _ = unpack(packed[None], ramps=False)
+    state, out = process_chunk(config, state, audio[None], ends.to(torch.int32), params)
+    return state, out[0]
 
 
 def _fidelity_chunk(scfg: SpectralConfig, state, audio, packed, deterministic: bool):
-    """The fidelity step from the same packed layout: rate, transpose and
-    tonality map onto the blob's controls (timeFactor = min(1/rate,
-    interval), limit = tonality / sqrt(multiplier)); with ``scfg.formants``
-    the formant fields feed the blob's step 5."""
-    h = packed.shape[0] - 7
-    ends = packed[:h].to(torch.int32)
-    p = StretchParams(*[packed[h + i] for i in range(7)])
-    tf = torch.clamp_max(1.0 / torch.clamp_min(p.rate, 1e-6), float(scfg.interval))
-    limit = p.tonality / torch.sqrt(p.transpose_factor)
-    formants = ((p.formant_factor, p.formant_compensation, p.formant_base)
-                if scfg.formants else (None, None, None))
-    return fidelity_chunk(scfg, state, audio, ends, tf, p.transpose_factor, limit, p.active,
-                          *formants, deterministic=deterministic)
+    """The fidelity step from the same packed layout, its fields mapped
+    onto the blob's controls by ``engine.drive.fidelity_operands``."""
+    return fidelity_chunk(scfg, state, audio, *fidelity_operands(scfg, packed, ramps=False),
+                          deterministic=deterministic)
 
 
 class StretchNode:
@@ -63,7 +54,8 @@ class StretchNode:
     File playback: ``add_buffers`` appends channel buffers to a timeline,
     as the reference worklet's buffer list does.  ``engine``: "fast"
     (``engine/core.py``) or "fidelity" (the blob-exact engine, which keeps
-    the requested block, ``_raw_sizes``)."""
+    the requested block).  The geometry is ``engine.drive.geometry``'s,
+    kept as ``drive``."""
 
     def __init__(
         self,
@@ -77,15 +69,11 @@ class StretchNode:
         # hops_per_dispatch > 1 renders that many intervals ahead, delaying
         # the effect of schedule() changes; 1 keeps control latency at one
         # interval, the reference's per-quantum control sampling
-        if engine not in ("fast", "fidelity"):
-            raise ValueError(f"unknown engine {engine!r}")
+        self.drive = geometry(engine, channels, sample_rate, config)
         self.engine = engine
         self.device = resolve_device(device)
         self.sample_rate = float(sample_rate)
         self.channels = channels
-        self.config = config or preset_default(channels, sample_rate)
-        if config is None:
-            self._raw_sizes = (round(self.sample_rate * 0.12), round(self.sample_rate * 0.03))
         self.hops_per_dispatch = hops_per_dispatch
         self.timemap = TimeMap()
         self._buffers: list[np.ndarray] = []
@@ -104,18 +92,17 @@ class StretchNode:
         """Accepts the reference config keys: blockMs / intervalMs / overlap
         / splitComputation / preset, and block / interval in samples.
         Reconfiguring resets the engine, like the reference."""
-        if kw.get("preset") == "cheaper":
-            self.config = preset_cheaper(self.channels, self.sample_rate)
-            self._raw_sizes = (round(self.sample_rate * 0.1), round(self.sample_rate * 0.04))
+        sr, sizes = self.sample_rate, None
+        if kw.get("preset") == "cheaper":   # engine.config.preset_cheaper's 100/40 ms
+            sizes = dict(block=round(sr * 0.1), interval=round(sr * 0.04))
         elif kw.get("preset") == "default":
-            self.config = preset_default(self.channels, self.sample_rate)
-            self._raw_sizes = (round(self.sample_rate * 0.12), round(self.sample_rate * 0.03))
+            sizes = {}
         elif "blockMs" in kw or "block" in kw:
-            block = int(kw.get("block") or round(kw["blockMs"] / 1000.0 * self.sample_rate))
+            block = int(kw.get("block") or round(kw["blockMs"] / 1000.0 * sr))
             if "interval" in kw:
                 interval = int(kw["interval"])
             elif "intervalMs" in kw:
-                interval = round(kw["intervalMs"] / 1000.0 * self.sample_rate)
+                interval = round(kw["intervalMs"] / 1000.0 * sr)
             elif "overlap" in kw:
                 # the reference clamps overlap to [1, 8] before configuring;
                 # overlap < 1 would mean interval > block, where the blob's
@@ -127,54 +114,37 @@ class StretchNode:
                 raise ValueError(
                     f"interval ({interval}) must not exceed block ({block}): gapped analysis "
                     "has no COLA window (the reference UI clamps overlap to [1, 8])")
-            self._raw_sizes = (block, max(1, interval))
-            self.config = StretchConfig(
-                channels=self.channels,
-                block=block,
-                interval=max(1, interval),
-                split_computation=bool(kw.get("splitComputation",
-                                              self.config.split_computation)),
-            )
+            sizes = dict(block=block, interval=max(1, interval),
+                         split=bool(kw.get("splitComputation", self.config.split_computation)))
+        if sizes is not None:
+            self.drive = geometry(self.engine, self.channels, sr, **sizes)
         self.reset()
 
-    @property
-    def _scfg(self) -> SpectralConfig:
-        """Fidelity-mode config: the blob keeps the REQUESTED block (no
-        fast-size rounding; its FFT zero-pads above it), so latency and
-        windowing match exactly."""
-        block, interval = getattr(self, "_raw_sizes", (self.config.block, self.config.interval))
-        return SpectralConfig(self.channels, block, interval,
-                              split=self.config.split_computation)
-
     def reset(self) -> None:
-        if self.engine == "fidelity":
-            self._state = init_fidelity_state(self._scfg, self.device)
-        else:
-            self._state = init_state(self.config, self.device)
+        self._state = self.drive.state(self.device)
         self._out_pos = 0
         self._fifo = np.zeros((self.channels, 0), np.float32)
         self._since_update = 0.0
 
     @property
+    def config(self) -> StretchConfig:
+        return self.drive.config
+
+    @property
     def block_samples(self) -> int:
-        return self._scfg.block if self.engine == "fidelity" else self.config.block
+        return self.drive.block
 
     @property
     def interval_samples(self) -> int:
-        return self._scfg.interval if self.engine == "fidelity" else self.config.interval
+        return self.drive.interval
 
     @property
     def input_latency(self) -> int:
-        return self.block_samples // 2 if self.engine == "fidelity" else self.config.input_latency
+        return self.drive.input_latency
 
     @property
     def output_latency(self) -> int:
-        if self.engine == "fidelity":
-            # block/2 + interval with split on; split off drops the +interval
-            b = self.block_samples
-            extra = self.interval_samples if self.config.split_computation else 0
-            return (b - b // 2) + extra
-        return self.config.output_latency
+        return self.drive.output_latency
 
     def latency(self) -> float:
         """Total latency in seconds (the reference node's ``latency``)."""
@@ -250,28 +220,13 @@ class StretchNode:
         self.input_time = self.timemap.input_time_at(self.output_time)
         return out
 
-    def _params_equal(self, a: Segment, b: Segment) -> bool:
-        """True when two segments share every per-chunk parameter.  Timing
-        fields ride the per-hop frame-end table, so a boundary that changes
-        only timing does not split a chunk of the fast engine; the fidelity
-        engine takes rate as a spectral parameter (timeFactor), so rate
-        splits there."""
-        same = (a.active == b.active and a.semitones == b.semitones
-                and a.tonality_hz == b.tonality_hz
-                and a.formant_semitones == b.formant_semitones
-                and a.formant_compensation == b.formant_compensation
-                and a.formant_base_hz == b.formant_base_hz)
-        if self.engine == "fidelity":
-            same = same and a.rate == b.rate
-        return same
-
     def _hops_to_boundary(self) -> int:
         """Hops renderable before a segment with different parameters takes
-        effect (rate-only boundaries render within one chunk)."""
+        effect (``engine.drive.Drive.params_equal``)."""
         segs = self.timemap.segments
         next_out = None
         for k in range(1, len(segs)):
-            if not self._params_equal(segs[k - 1], segs[k]):
+            if not self.drive.params_equal(segs[k - 1], segs[k]):
                 next_out = segs[k].output
                 break
         if next_out is None:
@@ -284,43 +239,19 @@ class StretchNode:
         return int(np.floor(samples_left / self.interval_samples))
 
     def _render_hops(self, n_hops: int) -> None:
-        fid = self.engine == "fidelity"
-        block, interval = self.block_samples, self.interval_samples
         sr = self.sample_rate
         audio = self._device_audio()
-        packed = np.zeros(n_hops + 7, np.float32)
-        seg = None
-        for h in range(n_hops):
-            # fidelity: the worklet samples inputTime at the hop's
-            # output-counter position; fast: the frame centre maps from the
-            # output frame centre
-            out_s = self._out_pos + self._fifo.shape[1] + h * interval + (0 if fid else block // 2)
-            out_t = out_s / sr + self.output_latency / sr
-            in_t = self.timemap.input_time_at(out_t)
-            packed[h] = float(int(round(in_t * sr)) + block // 2)
-            seg = self.timemap.current()
-        packed[n_hops:] = (
-            1.0 if seg.active else 0.0,
-            seg.rate,
-            2.0 ** (seg.semitones / 12.0),
-            seg.tonality_hz / sr,
-            2.0 ** (seg.formant_semitones / 12.0),
-            1.0 if seg.formant_compensation else 0.0,
-            seg.formant_base_hz / sr,
-        )
-        formants = seg.formant_semitones != 0.0 or seg.formant_compensation
+        packed = packed_rows(1, n_hops, ramps=False)[0]
+        rendered = self._out_pos + self._fifo.shape[1]
+        seg = self.drive.fill(packed, self.timemap, rendered, n_hops, sr)
+        # the gate from the segment, not from the packed float32 fields
+        program = self.drive.gated(seg.formant_semitones != 0.0 or seg.formant_compensation)
         dev_packed = torch.from_numpy(packed).to(self.device)
-        if fid:
-            scfg = self._scfg._replace(formants=True) if formants else self._scfg
-            self._state, out = _fidelity_chunk(
-                scfg, self._state, audio, dev_packed,
-                _deterministic(packed[n_hops + 1:n_hops + 2], scfg.interval))
+        if self.engine == "fidelity":
+            regime = deterministic_regime(unpack(packed, ramps=False)[1].rate, program.interval)
+            self._state, out = _fidelity_chunk(program, self._state, audio, dev_packed, regime)
         else:
-            # host-side formant gating (see serve.pool.StreamPool.step)
-            cfg = self.config if (formants or not self.config.formants) else formants_off(
-                self.config)
-            self._state, out = _chunk(cfg, self._state, audio, dev_packed)
-            out = out[0]
+            self._state, out = _chunk(program, self._state, audio, dev_packed)
         out = out.cpu().numpy()
         self._fifo = np.concatenate([self._fifo, out], axis=1)
         self._since_update += out.shape[1] / sr
@@ -373,9 +304,5 @@ class StretchNode:
 
     def flush(self) -> np.ndarray:
         """Emit the remaining overlap-add tail (the reference ``_flush``)."""
-        if self.engine == "fidelity":
-            spec_state, tail = self._state
-            self._state = (spec_state, torch.zeros_like(tail))
-            return tail.cpu().numpy()
-        self._state, tail = engine_flush(self.config, self._state)
-        return tail[0].cpu().numpy()
+        self._state, tail = self.drive.flush(self._state)
+        return tail.cpu().numpy()

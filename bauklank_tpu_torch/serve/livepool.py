@@ -16,13 +16,10 @@ import numpy as np
 import torch
 
 from bauklank_tpu_torch.engine.config import StretchConfig, preset_default
-from bauklank_tpu_torch.engine.fidelity import (
-    SpectralConfig,
-    batched_live_fidelity_chunk,
-    init_batched_live_fidelity_state,
-)
-from bauklank_tpu_torch.engine.live import init_live_state, process_live
-from bauklank_tpu_torch.engine.params import StretchParams
+from bauklank_tpu_torch.engine.drive import (fidelity_controls, geometry, packed_rows, params_of,
+                                              unpack, uses_formants)
+from bauklank_tpu_torch.engine.fidelity import SpectralConfig, batched_live_fidelity_chunk
+from bauklank_tpu_torch.engine.live import process_live
 from bauklank_tpu_torch.schedule.timemap import TimeMap
 from bauklank_tpu_torch.serve.pool import _TIMEMAP_KEYS, CONTROL_CLAMPS
 from bauklank_tpu_torch.utils.device import DEFAULT_DEVICE, resolve_device
@@ -35,19 +32,15 @@ __all__ = ["LivePool"]
 def _live_fidelity_step(scfg: SpectralConfig, states, chunks, packed):
     """The coupled blob-exact step from the packed [S, 7] StretchParams
     fields.  Rate does not apply (the live branch consumes input in
-    lockstep with output and never seeks); transpose, tonality and the
-    formant fields map onto the blob controls as in file mode."""
-    params = StretchParams.unpack(packed, 0)
-    mult = params.transpose_factor
-    limit = params.tonality / torch.sqrt(mult)
-    formants = ((params.formant_factor, params.formant_compensation, params.formant_base)
-                if scfg.formants else (None, None, None))
-    return batched_live_fidelity_chunk(scfg, states, chunks, mult, limit, params.active,
-                                       *formants)
+    lockstep with output and never seeks); the other fields map onto the
+    blob controls as in file mode (``engine.drive.fidelity_controls``)."""
+    _, params, _, _ = unpack(packed, ramps=False)
+    return batched_live_fidelity_chunk(scfg, states, chunks, *fidelity_controls(scfg, params))
 
 
 class LivePool:
-    """N live voices, one device step per ``hops_per_step`` intervals."""
+    """N live voices, one device step per ``hops_per_step`` intervals; both
+    engines run the ``config``'s sizes (``engine.drive.geometry``)."""
 
     def __init__(
         self,
@@ -60,20 +53,17 @@ class LivePool:
         engine: str = "fast",
         device=DEFAULT_DEVICE,
     ) -> None:
-        if engine not in ("fast", "fidelity"):
-            raise ValueError(f"unknown engine {engine!r}")
+        self.drive = geometry(engine, channels, sample_rate,
+                              config or preset_default(channels, sample_rate))
+        self.config, self.scfg = self.drive.config, self.drive.scfg
         self.engine = engine
         self.device = resolve_device(device)
         self.sample_rate = float(sample_rate)
-        self.config = config or preset_default(channels, sample_rate)
         self.capacity = capacity
         self.hops_per_step = hops_per_step
         self.names = names or [f"l{i:02d}" for i in range(capacity)]
         self._by_name = {n: i for i, n in enumerate(self.names)}
-        if engine == "fidelity":
-            self.scfg = SpectralConfig(channels, self.config.block, self.config.interval,
-                                       split=self.config.split_computation)
-        self.states = self._init_batched(capacity)
+        self.states = self.drive.live_states(hops_per_step, capacity, self.device)
         self.timemaps = [TimeMap() for _ in range(capacity)]
         c = self.config.channels
         self._in_fifo = [np.zeros((c, 0), np.float32) for _ in range(capacity)]
@@ -81,12 +71,6 @@ class LivePool:
         self.timer = StepTimer(sample_rate)
 
     # -------------------------------------------------- slot lifecycle
-    def _init_batched(self, n: int):
-        """Fresh engine state for ``n`` streams."""
-        if self.engine == "fidelity":
-            return init_batched_live_fidelity_state(self.scfg, self.hops_per_step, n, self.device)
-        return init_live_state(self.config, self.hops_per_step, n, self.device)
-
     def clear_voice(self, slot: str) -> None:
         """Reset one live voice (engine state, input FIFO, time map) so the
         batch row can be reused."""
@@ -95,7 +79,7 @@ class LivePool:
         def reset(a, fresh):
             a[i] = fresh[0]
 
-        tree_map(reset, self.states, self._init_batched(1))
+        tree_map(reset, self.states, self.drive.live_states(self.hops_per_step, 1, self.device))
         self.timemaps[i] = TimeMap()
         self._in_fifo[i] = np.zeros((self.config.channels, 0), np.float32)
 
@@ -106,7 +90,7 @@ class LivePool:
             return
         pad = new_capacity - self.capacity
         self.states = tree_map(lambda a, b: torch.cat([a, b]), self.states,
-                               self._init_batched(pad))
+                               self.drive.live_states(self.hops_per_step, pad, self.device))
         taken = set(self._by_name)
         k = self.capacity
         while len(self.names) < new_capacity:
@@ -144,7 +128,7 @@ class LivePool:
         lo, hi = CONTROL_CLAMPS.get("semitones" if key == "tone" else key, (None, None))
         if lo is not None:
             value = float(np.clip(float(value), lo, hi))
-        out_t = self.out_pos / self.sample_rate + self.config.output_latency / self.sample_rate
+        out_t = self.out_pos / self.sample_rate + self.drive.output_latency / self.sample_rate
         self.timemaps[self._by_name[slot]].schedule({key: value, "output": out_t + lookahead})
         return True
 
@@ -154,41 +138,29 @@ class LivePool:
     def step(self) -> np.ndarray:
         """Process hops_per_step intervals for every stream
         -> [S, C, hops_per_step * interval]."""
-        cfg = self.config
+        drive, c = self.drive, self.config.channels
         self.timer.start()
-        n = cfg.interval * self.hops_per_step
-        chunks = np.zeros((self.capacity, cfg.channels, n), np.float32)
+        n = drive.interval * self.hops_per_step
+        chunks = np.zeros((self.capacity, c, n), np.float32)
         for i in range(self.capacity):
             take = min(n, self._in_fifo[i].shape[1])
             chunks[i, :, :take] = self._in_fifo[i][:, :take]  # underrun -> zeros
             self._in_fifo[i] = self._in_fifo[i][:, take:]
         sr = self.sample_rate
-        out_t = self.out_pos / sr + cfg.output_latency / sr
-        packed = np.zeros((self.capacity, 7), np.float32)
-        for i, tm in enumerate(self.timemaps):
+        out_t = self.out_pos / sr + drive.output_latency / sr
+        packed = packed_rows(self.capacity, 0, ramps=False)
+        for row, tm in zip(packed, self.timemaps):
             tm.advance_to(out_t)
             seg = tm.current()
-            packed[i] = (
-                1.0 if seg.active else 0.0,
-                1.0,  # live mode consumes input in lockstep
-                2.0 ** (seg.semitones / 12.0),
-                seg.tonality_hz / sr,
-                2.0 ** (seg.formant_semitones / 12.0),
-                1.0 if seg.formant_compensation else 0.0,
-                seg.formant_base_hz / sr,
-            )
+            row[:] = params_of(seg, sr, seg.active, rate=1.0)  # input in lockstep: rate 1
         dev_chunks = torch.from_numpy(chunks).to(self.device)
         dev_packed = torch.from_numpy(packed).to(self.device)
         if self.engine == "fidelity":
-            # host-side formant gating, as in StreamPool.step: the formant
-            # chain runs only in a step where some voice drives it
-            scfg = self.scfg
-            if np.any(packed[:, 4] != 1.0) or np.any(packed[:, 5] != 0.0):
-                scfg = scfg._replace(formants=True)
+            scfg = drive.gated(uses_formants(unpack(packed, ramps=False)[1]))
             self.states, out = _live_fidelity_step(scfg, self.states, dev_chunks, dev_packed)
         else:
-            self.states, out = process_live(cfg, self.states, dev_chunks,
-                                            StretchParams.unpack(dev_packed, 0))
+            self.states, out = process_live(drive.config, self.states, dev_chunks,
+                                            unpack(dev_packed, ramps=False)[1])
         self.out_pos += n
         result = out.cpu().numpy()
         self.timer.tick(self.capacity * n, n / self.sample_rate)

@@ -12,7 +12,9 @@ over the step; clamps follow the reference (rate [1e-5, 2], semitones
 
 Per step the host builds one packed ``[S, H + 11]`` float32 array (frame
 ends, the seven StretchParams fields, gain and pan ramps) and copies it
-to the device once.
+to the device once.  The geometry, the rows, the formant gate and the
+regime word are the engine's drive (``engine/drive.py``), which the node
+and the live pool share.
 
 While a profiler records, :meth:`StreamPool.step` runs under a
 ``pool.step`` range (``utils.metrics.span``), and inside it
@@ -57,18 +59,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from bauklank_tpu_torch.engine.batched import (
-    batched_process_chunk,
-    formants_off,
-    init_batched_state,
-)
-from bauklank_tpu_torch.engine.config import StretchConfig, preset_default
-from bauklank_tpu_torch.engine.fidelity import (
-    SpectralConfig,
-    fidelity_stages,
-    init_batched_fidelity_state,
-)
-from bauklank_tpu_torch.engine.params import StretchParams
+from bauklank_tpu_torch.engine.batched import batched_process_chunk
+from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.drive import (deterministic_regime, fidelity_operands, geometry,
+                                              packed_rows, unpack, uses_formants)
+from bauklank_tpu_torch.engine.fidelity import SpectralConfig, fidelity_stages
 from bauklank_tpu_torch.engine.spectral import chainfetch_enabled
 from bauklank_tpu_torch.ops.analyze import analyze_signal
 from bauklank_tpu_torch.schedule.timemap import TimeMap
@@ -134,32 +129,12 @@ def _mixdown(out, gains, pans):
 
 
 def _pool_step(config: StretchConfig, states, audios, packed):
-    """One fast-engine pool step from the packed ``[S, H + 11]`` array:
-    [:H] frame ends, [H:H+7] StretchParams fields, [H+7:H+9] gain (start,
-    end), [H+9:H+11] pan (start, end).  Returns (states, master [2, n],
-    streams [S, C, n])."""
-    h = packed.shape[1] - 11
-    ends = packed[:, :h].to(torch.int32)
-    params = StretchParams.unpack(packed, h)
-    states, out = batched_process_chunk(config, states, audios, ends, params)
-    return states, _mixdown(out, packed[:, h + 7: h + 9], packed[:, h + 9: h + 11]), out
-
-
-def _fidelity_args(scfg: SpectralConfig, packed):
-    """The engine's operands of a fidelity pool step from the packed array
-    (the layout of :func:`_pool_step`): (ends, tf, mult, limit, active,
-    and the three formant controls, or None where ``scfg.formants`` is
-    off)."""
-    h = packed.shape[1] - 11
-    ends = packed[:, :h].to(torch.int32)
-    params = StretchParams.unpack(packed, h)
-    # blob seek law: the effective timeFactor saturates at `interval` when
-    # the rate advances < 1 input sample per hop
-    tf = torch.clamp_max(1.0 / torch.clamp_min(params.rate, 1e-6), float(scfg.interval))
-    limit = params.tonality / torch.sqrt(params.transpose_factor)
-    formants = ((params.formant_factor, params.formant_compensation, params.formant_base)
-                if scfg.formants else (None, None, None))
-    return (ends, tf, params.transpose_factor, limit, params.active, *formants)
+    """One fast-engine pool step from the packed ``[S, H + 11]`` array
+    (``engine.drive.unpack``: frame ends, the seven StretchParams fields,
+    gain and pan ramps).  Returns (states, master [2, n], streams)."""
+    ends, params, gains, pans = unpack(packed)
+    states, out = batched_process_chunk(config, states, audios, ends.to(torch.int32), params)
+    return states, _mixdown(out, gains, pans), out
 
 
 def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
@@ -167,7 +142,8 @@ def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
     """One fidelity pool step from the same packed layout as
     :func:`_pool_step`.  With ``scfg.formants`` the packed formant fields
     drive the blob's step 5 per stream.  ``deterministic``: the host's
-    word that every voice is at time factor <= 2 (:func:`_deterministic`).
+    word that every voice is at time factor <= 2
+    (``engine.drive.deterministic_regime``).
     ``graphs``: the pool's step graphs on the card, with ``packed`` still
     on the host; the step's stages are then replayed as CUDA graphs, one
     set per step key (``serve/graphs.py``), and the new state returned is
@@ -187,25 +163,13 @@ def _issue_fidelity(scfg: SpectralConfig, states, audios, packed, deterministic,
     stages in their ``fidelity.*`` ranges, the mixdown (the unpacking and
     the mixdown with no range of their own: they are ``pool.step``'s).
     Returns (states, master, streams) once every stage has run."""
-    h = packed.shape[1] - 11
     out: dict = {}
-    run(None, lambda: out.update(args=_fidelity_args(scfg, packed)))
+    run(None, lambda: out.update(args=fidelity_operands(scfg, packed)))
     v, stages = fidelity_stages(scfg, states, audios, *out["args"], deterministic=deterministic)
     for name, stage in stages:
         run(name, stage)
-    run(None, lambda: out.update(master=_mixdown(
-        v["emit"], packed[:, h + 7: h + 9], packed[:, h + 9: h + 11])))
+    run(None, lambda: out.update(master=_mixdown(v["emit"], *unpack(packed)[2:])))
     return v["states"], out["master"], v["emit"]
-
-
-def _deterministic(rates: np.ndarray, interval: int) -> bool:
-    """Whether every voice's time factor, as :func:`_pool_step_fidelity`
-    computes it on the device from the packed float32 rates, is <= 2 (the
-    deterministic regime): the same float32 operations on the host, so the
-    step need not wait for the device to learn its regime."""
-    tf = np.minimum(np.float32(1.0) / np.maximum(rates, np.float32(1e-6)),
-                    np.float32(interval))
-    return bool(np.all(tf <= np.float32(2.0)))
 
 
 class StreamPool:
@@ -216,14 +180,9 @@ class StreamPool:
     ``engine/spectral.py``).  It runs on
     ``device``, the card unless the caller passes another.
 
-    The geometry: with neither ``config`` nor ``block``/``interval`` the
-    120/30 ms preset.  ``block`` and ``interval`` (samples, given
-    together, never with ``config``) are a deployment's own sizes: the
-    fidelity engine runs them exactly as given, as the blob does (the
-    kiosk's 200/200 ms: 8820/8820, FFT 10240); the fast engine builds its
-    ``StretchConfig`` from them, which rounds the block onto the FFT grid.
-    A given ``config`` runs as it is, its rounded block included (the
-    JAX pool's geometry)."""
+    The geometry (``config``, or ``block`` and ``interval``, which the
+    fidelity engine runs raw, or neither: the 120/30 ms preset) is
+    ``engine.drive.geometry``'s, kept as ``drive``."""
 
     def __init__(
         self,
@@ -240,37 +199,19 @@ class StreamPool:
         block: int | None = None,
         interval: int | None = None,
     ) -> None:
-        if engine not in ("fast", "fidelity"):
-            raise ValueError(f"unknown engine {engine!r}")
-        if (block is None) != (interval is None):
-            raise ValueError(f"block={block} and interval={interval}: give both or neither")
-        if block is not None and config is not None:
-            raise ValueError("give a config or block and interval, not both")
+        self.drive = geometry(engine, channels, sample_rate, config, block, interval)
+        self.config, self.scfg = self.drive.config, self.drive.scfg
         self.engine = engine
         self.device = resolve_device(device)
         self.clamps = dict(CONTROL_CLAMPS)
         self.clamps["rate"] = (CONTROL_CLAMPS["rate"][0], float(max_rate))
         self.sample_rate = float(sample_rate)
-        if block is not None:
-            raw = (int(block), int(interval))
-            config = StretchConfig(channels=channels, block=raw[0], interval=raw[1])
-        elif config is not None:
-            # a given StretchConfig has its block already rounded onto the
-            # FFT grid (engine/config.py); the fidelity pool takes it as it
-            # is, for parity with the JAX pool
-            raw = (config.block, config.interval)
-        else:
-            config = preset_default(channels, sample_rate)
-            raw = (round(sample_rate * 0.12), round(sample_rate * 0.03))
-        self.config = config
-        if engine == "fidelity":
-            self.scfg = SpectralConfig(channels, *raw, split=config.split_computation)
         self.capacity = capacity
         self.hops_per_step = hops_per_step
         self.max_track = int(max_track_sec * sample_rate)
         # frame-end sample indices ride the packed float32 array; float32
         # is integer-exact only below 2**24 (~380 s at 44.1 kHz)
-        if self.max_track + self._sizes[0] >= 2**24:
+        if self.max_track + self.drive.block >= 2**24:
             raise ValueError(
                 f"max_track_sec={max_track_sec} exceeds float32-exact frame "
                 f"positioning (track + block must stay < 2**24 samples)"
@@ -282,8 +223,8 @@ class StreamPool:
         self._audio_kept: torch.Tensor | None = None  # the tracks the step graphs read
         # the fidelity step on the card replays CUDA graphs (serve/graphs.py)
         self._graphs = (StepGraphs(self.device)
-                        if engine == "fidelity" and self.device.type == "cuda" else None)
-        self.states = self._init_states(capacity)
+                        if self.drive.graphs and self.device.type == "cuda" else None)
+        self.states = self.drive.states(capacity, self.device)
         self.out_pos = 0  # output samples stepped so far
         self._last_streams: torch.Tensor | None = None  # [S, C, n] of the last step
         # masters in flight for step(fetch="pipeline"): (host tensor, event or None)
@@ -319,11 +260,6 @@ class StreamPool:
         self._audio_dev = None
 
     # -------------------------------------------------- slot lifecycle
-    def _init_states(self, n: int):
-        if self.engine == "fidelity":
-            return init_batched_fidelity_state(self.scfg, n, self.device)
-        return init_batched_state(self.config, n, self.device)
-
     def clear_voice(self, slot: str) -> None:
         """Fully reset one voice (engine state, audio, time map, mix) so its
         batch row can be reused."""
@@ -335,7 +271,7 @@ class StreamPool:
         def reset(leaf, fresh):
             leaf[i] = fresh[0]
 
-        tree_map(reset, self.states, self._init_states(1))
+        tree_map(reset, self.states, self.drive.states(1, self.device))
 
     def grow(self, new_capacity: int) -> None:
         """Extend capacity in place (config-bucket growth in the unified
@@ -359,7 +295,7 @@ class StreamPool:
                 self.slots.append(VoiceSlot(name))
         self._by_name = {s.name: i for i, s in enumerate(self.slots)}
         self.states = tree_map(lambda a, b: torch.cat([a, b]), self.states,
-                               self._init_states(pad))
+                               self.drive.states(pad, self.device))
         if self._last_streams is not None:
             last = self._last_streams
             self._last_streams = torch.cat([last, last.new_zeros((pad,) + last.shape[1:])])
@@ -383,17 +319,8 @@ class StreamPool:
 
     # ------------------------------------------------------------- control
     @property
-    def _sizes(self):
-        """(block, interval, output_latency) of the pool's engine."""
-        if self.engine == "fidelity":
-            b, i = self.scfg.block, self.scfg.interval
-            return b, i, (b - b // 2) + (i if self.scfg.split else 0)
-        c = self.config
-        return c.block, c.interval, c.output_latency
-
-    @property
     def output_time(self) -> float:
-        return self.out_pos / self.sample_rate + self._sizes[2] / self.sample_rate
+        return self.out_pos / self.sample_rate + self.drive.output_latency / self.sample_rate
 
     def apply_set(self, slot: str, key: str, value: Any,
                   lookahead: float = SCHEDULE_LOOKAHEAD_SEC) -> bool:
@@ -454,35 +381,14 @@ class StreamPool:
 
     # --------------------------------------------------------------- step
     def _packed(self) -> np.ndarray:
-        """Host side of a step: each voice's hop frame ends, params and mix
-        ramps, in one [S, H + 11] float32 array.  The fidelity engine's
-        worklet drive samples inputTime at the hop's output-counter
-        position, the fast engine at the output frame's centre."""
-        sr = self.sample_rate
-        h = self.hops_per_step
-        block, interval, out_lat = self._sizes
-        centre = 0 if self.engine == "fidelity" else block // 2
-        packed = np.zeros((self.capacity, h + 11), np.float32)
-        for i, s in enumerate(self.slots):
-            seg = None
-            for k in range(h):
-                out_t = (self.out_pos + k * interval + centre) / sr + out_lat / sr
-                in_t = s.timemap.input_time_at(out_t)
-                packed[i, k] = float(int(round(in_t * sr)) + block // 2)
-                seg = s.timemap.current()
-            packed[i, h: h + 7] = (
-                1.0 if (seg.active and s.loaded) else 0.0,
-                seg.rate,
-                2.0 ** (seg.semitones / 12.0),
-                seg.tonality_hz / sr,
-                2.0 ** (seg.formant_semitones / 12.0),
-                1.0 if seg.formant_compensation else 0.0,
-                seg.formant_base_hz / sr,
-            )
-            packed[i, h + 7: h + 9] = (s._prev_volume, s.volume)
-            packed[i, h + 9: h + 11] = (s._prev_pan, s.pan)
-            s._prev_volume = s.volume
-            s._prev_pan = s.pan
+        """Host side of a step: each voice's row of hop frame ends, params
+        and mix ramps (``engine.drive``) in one [S, H + 11] float32 array."""
+        h, drive = self.hops_per_step, self.drive
+        packed = packed_rows(self.capacity, h)
+        for row, s in zip(packed, self.slots):
+            drive.fill(row, s.timemap, self.out_pos, h, self.sample_rate, s.loaded,
+                       (s._prev_volume, s.volume, s._prev_pan, s.pan))
+            s._prev_volume, s._prev_pan = s.volume, s.pan
         return packed
 
     def step(self, fetch: bool | str = False):
@@ -496,40 +402,33 @@ class StreamPool:
         (None while the pipeline fills); :meth:`drain` returns the rest."""
         with span("pool.step"):
             self.timer.start()
-            h, interval = self.hops_per_step, self._sizes[1]
+            h, interval = self.hops_per_step, self.drive.interval
             with span("pool.pack"):
                 packed = self._packed()
-            formants = bool(np.any(packed[:, h + 4] != 1.0) or np.any(packed[:, h + 5] != 0.0))
+            # host-side formant gating: the formant chain runs only in a
+            # step where some voice uses a formant control
+            _, fields, _, _ = unpack(packed)
+            program = self.drive.gated(uses_formants(fields))
+            self.formant_steps += program.formants
+            audios = self._device_audio()
             if self.engine == "fidelity":
-                # host-side formant gating, as below: the formant chain runs
-                # only in a step where some voice uses a formant control
-                scfg = self.scfg._replace(formants=True) if formants else self.scfg
-                deterministic = _deterministic(packed[:, h + 1], scfg.interval)
+                deterministic = deterministic_regime(fields.rate, program.interval)
                 self.minstd_steps += not deterministic
-                self.formant_steps += scfg.formants
-                audios, graphs = self._device_audio(), self._graphs
+                graphs = self._graphs
                 if graphs is None:
                     self.states, master, streams = _pool_step_fidelity(
-                        scfg, self.states, audios, torch.from_numpy(packed).to(self.device),
+                        program, self.states, audios, torch.from_numpy(packed).to(self.device),
                         deterministic)
                 else:
                     states, master, streams = _pool_step_fidelity(
-                        scfg, self.states, audios, torch.from_numpy(packed), deterministic,
+                        program, self.states, audios, torch.from_numpy(packed), deterministic,
                         graphs=graphs)
                     # the step graphs read the pool's own state tensors
                     tree_map(lambda mine, new: mine if mine is new else mine.copy_(new),
                              self.states, states)
             else:
-                # host-side formant gating: when no voice uses formant controls
-                # this step, run the step without the formant chain (same state;
-                # the reference engine gates the same way)
-                cfg = self.config
-                if cfg.formants and not formants:
-                    cfg = formants_off(cfg)
-                self.formant_steps += cfg.formants
                 self.states, master, streams = _pool_step(
-                    cfg, self.states, self._device_audio(),
-                    torch.from_numpy(packed).to(self.device))
+                    program, self.states, audios, torch.from_numpy(packed).to(self.device))
             self.out_pos += h * interval
             self._last_streams = streams
             if fetch == "pipeline":

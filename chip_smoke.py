@@ -1193,7 +1193,7 @@ def serve(kind: str, pool, warm: int, timed: int, card: str, launches: dict):
         launches[k] += v
     peak = float(np.abs(master).max())
     s_n, h = pool.capacity, pool.hops_per_step
-    block, interval, _ = pool._sizes
+    block, interval = pool.drive.block, pool.drive.interval
     rtf = s_n * h * interval / SR / dt
     shape = (f"fft={pool.scfg.fft} L={pool.scfg.long_step}" if pool.engine == "fidelity"
              else f"bands={block // 2}")
@@ -1434,7 +1434,7 @@ def front_door_nodes(device: str, card: str, launches: dict, seconds: float = FR
     if not (np.isfinite(out).all() and np.abs(out).max() > 0):
         raise AssertionError("long-step node output is not finite or silent")
     log(f"[front] fidelity node at configure(block=2048, interval=64): long_step "
-        f"{node._scfg.long_step}, {out.shape[-1] / SR:.2f} s in {dt:.2f} s, peak "
+        f"{node.drive.scfg.long_step}, {out.shape[-1] / SR:.2f} s in {dt:.2f} s, peak "
         f"{float(np.abs(out).max()):.4f}, launches {counts} | {card}")
 
 
@@ -1458,7 +1458,7 @@ def long_step_chains(mhz: float, results: dict) -> None:
     ops: dict = {}
     with capture_operands(ops, "fidelity"):
         node.process_output(64)
-    compare_kernels({"band_chain": ops["band_chain"]}, f"node-L{node._scfg.long_step}",
+    compare_kernels({"band_chain": ops["band_chain"]}, f"node-L{node.drive.scfg.long_step}",
                     results, mhz)
     # blocks on the pool's FFT grid whose fft / 64 is 24 (fft 1536) and 40
     # (fft 2560); the preset at the unified buckets' first widths

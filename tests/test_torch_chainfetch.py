@@ -24,10 +24,10 @@ import torch
 from bauklank_tpu.ops.pallas.chainfetch import chainfetch as jax_chainfetch
 from bauklank_tpu.ops.pallas.chainfetch import chainfetch_t1
 from bauklank_tpu.ops.pallas.selection import pallas_gather as jax_pallas_gather
+from bauklank_tpu_torch.engine import drive
 from bauklank_tpu_torch.engine import spectral as tspec
 from bauklank_tpu_torch.kernels.chainfetch import chainfetch, chainfetch_ref
 from bauklank_tpu_torch.kernels.gather import frac_gather_ref, pallas_gather
-from bauklank_tpu_torch.serve import pool as tpool
 from test_torch_spectral import _t, _tonal_analyses
 
 torch.set_num_threads(1)
@@ -175,14 +175,14 @@ def test_down_positions_are_the_kernels_step_bit_for_bit():
 
 
 def test_pool_knows_its_regime_on_the_host():
-    """``_deterministic`` repeats the device's float32 time-factor law on
-    the host: equal to ``all(tf <= 2)`` of the tensors the step computes,
-    at the float32 neighbours of rate 0.5."""
+    """``engine.drive.deterministic_regime`` repeats the device's float32
+    time-factor law on the host: equal to ``all(tf <= 2)`` of the tensors
+    the step computes, at the float32 neighbours of rate 0.5."""
     half = np.float32(0.5)
     for rates in ([0.5, 1.0, 2.0], [np.nextafter(half, np.float32(0)), 1.0],
                   [np.nextafter(half, np.float32(1)), 0.75], [1e-5, 1.0], [0.0, 1.0]):
         r = np.asarray(rates, np.float32)
         tf = torch.clamp_max(1.0 / torch.clamp_min(_t(r), 1e-6), 1323.0)
-        assert tpool._deterministic(r, 1323) == bool((tf <= 2.0).all()), rates
-    assert tpool._deterministic(np.asarray([0.5, 2.0], np.float32), 1323)
-    assert not tpool._deterministic(np.asarray([0.4999, 2.0], np.float32), 1323)
+        assert drive.deterministic_regime(r, 1323) == bool((tf <= 2.0).all()), rates
+    assert drive.deterministic_regime(np.asarray([0.5, 2.0], np.float32), 1323)
+    assert not drive.deterministic_regime(np.asarray([0.4999, 2.0], np.float32), 1323)

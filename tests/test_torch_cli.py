@@ -129,10 +129,10 @@ def test_serve_block_ms_and_overlap_give_the_stream_pool_its_geometry(runs, engi
     overlap of 4."""
     cli.main(["serve", "--pool-capacity", "1", "--no-serial-scan", "--engine", engine,
               "--device", "cpu", "--block-ms", "200", "--overlap", "1"])
-    assert runs[0].pool._sizes[:2] == sizes
+    assert (runs[0].pool.drive.block, runs[0].pool.drive.interval) == sizes
     cli.main(["serve", "--pool-capacity", "1", "--no-serial-scan", "--engine", engine,
               "--device", "cpu", "--block-ms", "200"])
-    assert runs[1].pool._sizes[1] == 2205
+    assert runs[1].pool.drive.interval == 2205
 
 
 @pytest.mark.parametrize("argv", [["--overlap", "1"],

@@ -206,7 +206,7 @@ def test_fidelity_node_past_the_old_long_step_bound():
         node.add_buffers([tone(440.0, int(SR), SR)])
         node.start(when=0.0, offset=0.3, rate=0.7)
         outs.append(node.process_output(16 * 64))
-    assert node._scfg.long_step == 32 and node.block_samples == 2048
+    assert node.drive.scfg.long_step == 32 and node.block_samples == 2048
     want, got = outs
     assert np.abs(want).max() > 1e-2
     assert snr_db(want, got) >= 60.0, snr_db(want, got)
@@ -217,7 +217,7 @@ def test_node_fidelity_keeps_the_raw_block_and_flushes():
     assert node.block_samples == round(SR * 0.12) and node.interval_samples == round(SR * 0.03)
     node.configure(blockMs=200, overlap=1.0, splitComputation=True)   # the kiosk
     assert (node.block_samples, node.interval_samples) == (8820, 8820)
-    assert node._scfg.long_step == 1
+    assert node.drive.scfg.long_step == 1
     node.add_buffers([tone(330.0, int(SR), SR)])
     node.start(when=0.0, offset=0.0, rate=0.25, semitones=-5)
     out = node.process_output(2 * 8820)

@@ -32,13 +32,19 @@ from bauklank_tpu_torch.serve.pool import StreamPool
 SR = 44100.0
 
 
+def _sizes(pool):
+    """(block, interval, output latency) of the pool's engine drive."""
+    d = pool.drive
+    return d.block, d.interval, d.output_latency
+
+
 def test_fidelity_pool_runs_the_raw_kiosk_geometry():
     pool = StreamPool(capacity=1, engine="fidelity", block=8820, interval=8820,
                       max_track_sec=1.0, device="cpu")
     s = pool.scfg
     assert s == SpectralConfig(2, 8820, 8820, split=True)
     assert (s.fft, s.bands, s.long_step) == (10240, 5120, 1)
-    assert pool._sizes == (8820, 8820, 8820 - 4410 + 8820)
+    assert _sizes(pool) == (8820, 8820, 8820 - 4410 + 8820)
     assert pool.output_time == 13230 / SR
     assert pool.states[0].prev_output.shape == (1, 2, 5120)
     assert pool.states[1].shape == (1, 2, 8820 + 8820)
@@ -54,7 +60,7 @@ def test_fast_pool_rounds_block_and_interval_as_its_config_does():
     pool = StreamPool(capacity=1, engine="fast", block=8820, interval=8820,
                       max_track_sec=1.0, device="cpu")
     assert pool.config == StretchConfig(channels=2, block=8820, interval=8820)
-    assert pool._sizes == (9216, 8820, pool.config.output_latency)
+    assert _sizes(pool) == (9216, 8820, pool.config.output_latency)
 
 
 @pytest.mark.parametrize("kw, said", [
@@ -75,9 +81,9 @@ def test_a_pool_without_block_or_interval_keeps_its_geometry(engine):
     assert pool.config == preset_default(2, SR)
     if engine == "fidelity":
         assert pool.scfg == SpectralConfig(2, 5292, 1323, split=True)
-        assert pool._sizes == (5292, 1323, 5292 - 2646 + 1323)
+        assert _sizes(pool) == (5292, 1323, 5292 - 2646 + 1323)
     else:
-        assert pool._sizes == (5376, 1323, pool.config.output_latency)
+        assert _sizes(pool) == (5376, 1323, pool.config.output_latency)
     # a given config keeps its grid block in the fidelity pool (the JAX pool's)
     cfg = StretchConfig(block=8820, interval=8820)
     pool = StreamPool(capacity=1, engine=engine, config=cfg, max_track_sec=1.0, device="cpu")

@@ -24,6 +24,7 @@ import threading
 import pytest
 import torch
 
+from bauklank_tpu_torch.engine.drive import fidelity_operands, unpack
 from bauklank_tpu_torch.engine.fidelity import (
     SpectralConfig,
     _consts,
@@ -31,7 +32,7 @@ from bauklank_tpu_torch.engine.fidelity import (
     fidelity_stages,
 )
 from bauklank_tpu_torch.serve import pool as pool_mod
-from bauklank_tpu_torch.serve.pool import StreamPool, _fidelity_args, _issue_fidelity, _mixdown
+from bauklank_tpu_torch.serve.pool import StreamPool, _issue_fidelity, _mixdown
 from bauklank_tpu_torch.utils.metrics import tables_read
 from bauklank_tpu_torch.utils.tree import keyed_leaves
 from tests.util import tone
@@ -95,12 +96,11 @@ def test_staged_pool_step_is_the_chunk_and_mixdown(case, monkeypatch):
     for (scfg, states, audios, packed, det), (got_states, master, streams) in _steps(
             _pool(*CASES[case]), 2, monkeypatch):
         regimes.add(det)
-        h = packed.shape[1] - 11
         want_states, want_emit = batched_fidelity_chunk(
-            scfg, states, audios, *_fidelity_args(scfg, packed), deterministic=det)
+            scfg, states, audios, *fidelity_operands(scfg, packed), deterministic=det)
         assert torch.equal(streams, want_emit)
-        assert torch.equal(master, _mixdown(want_emit, packed[:, h + 7: h + 9],
-                                            packed[:, h + 9: h + 11]))
+        _, _, gains, pans = unpack(packed)
+        assert torch.equal(master, _mixdown(want_emit, gains, pans))
         _equal(got_states, want_states)
     assert regimes == {"preset": {True}}.get(case, {False})
     assert float(master.abs().max()) > 0
@@ -110,7 +110,7 @@ def test_staged_pool_step_is_the_chunk_and_mixdown(case, monkeypatch):
 def test_stages_composed_are_the_chunk(case, monkeypatch):
     pool = _pool(*CASES[case])
     (scfg, states, audios, packed, det), _ = _steps(pool, 1, monkeypatch)[0]
-    args = _fidelity_args(scfg, packed)
+    args = fidelity_operands(scfg, packed)
     want_states, want_emit = batched_fidelity_chunk(scfg, states, audios, *args,
                                                     deterministic=det)
     v, stages = fidelity_stages(scfg, states, audios, *args, deterministic=det)
