@@ -51,11 +51,6 @@ class Drive:
     output_latency: int
     centre: int
 
-    @property
-    def graphs(self) -> bool:
-        """Whether a pool on the card replays the step as CUDA graphs."""
-        return self.scfg is not None
-
     def fill(self, row: np.ndarray, timemap, out_pos: int, hops: int, sample_rate: float,
              loaded: bool = True, ramps: tuple | None = None):
         """Fill a voice's packed ``row``: ``hops`` frame ends (hop k's from

@@ -1,13 +1,15 @@
-"""CUDA graphs of the fidelity pool step: the step's launches issued by a
-few graph replays instead of one by one from Python.
+"""CUDA graphs of the pool step, of either engine: the step's launches
+issued by a few graph replays instead of one by one from Python.
 
-A fidelity step on the card issues some 300-500 small launches a step,
-and the host takes longer to issue them than the card takes to run them.
-:class:`StepGraphs` captures the step once per step key and replays it:
+A pool step on the card issues some 160 (fast engine) to 300-500
+(fidelity engine) small launches, and the host takes longer to issue
+them than the card takes to run them.  :class:`StepGraphs` captures the
+step once per step key and replays it:
 
 - The step is issued as stages, each a function of no arguments handed
-  to ``run(range name or None, stage)`` (``serve.pool._pool_step_fidelity``:
-  the unpacking, ``engine.fidelity.fidelity_stages``, the mixdown), and
+  to ``run(range name or None, stage)`` (``serve.pool._issue_fast`` and
+  ``_issue_fidelity``: the unpacking, ``engine.core.fast_stages`` or
+  ``engine.fidelity.fidelity_stages``, the mixdown), and
   each stage is captured as its own graph, all of one key in one memory
   pool, so that a replay runs inside the same program range
   (``utils.metrics.span``) as the stage's eager launches: the profiler

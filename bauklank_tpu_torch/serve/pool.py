@@ -28,16 +28,17 @@ times: ``steps``, ``late``, ``minstd_steps``, ``formant_steps``,
 process-wide ``table_builds``; the server's ``/status`` and heartbeat
 publish them.
 
-A fidelity pool on the card replays its step as CUDA graphs
-(``serve/graphs.py``), captured once per step key (capacity, hops a
-step, regime, formant gate, the fused-fetch switch) after that key's
-first, eager step.  The step goes through :func:`_pool_step_fidelity`
-either way.  The state and the tracks stay in the pool's own tensors,
-which the graphs read: each step's new state is copied into them, and a
-changed track into the tracks' tensor.  New tensors (``grow``, a
-checkpoint's load, tracks of another shape) make the graphs capture
-again.  ``metrics()`` counts them: ``graph_captures`` and
-``graph_replays``.  On the CPU, and for the fast engine, the step runs
+A pool of either engine on the card replays its step as CUDA graphs
+(``serve/graphs.py``), captured once per step key after that key's
+first, eager step: the gated program and the packed array's shape
+(capacity, hops a step), and for the fidelity engine also the regime
+and the fused-fetch switch.  The step goes through :func:`_pool_step` or
+:func:`_pool_step_fidelity` either way.  The state and the tracks stay
+in the pool's own tensors, which the graphs read: each step's new state
+is copied into them, and a changed track into the tracks' tensor.  New
+tensors (``grow``, a checkpoint's load, tracks of another shape) make
+the graphs capture again.  ``metrics()`` counts them:
+``graph_captures`` and ``graph_replays``.  On the CPU the step runs
 eagerly as it always has.
 
 ``step(fetch="pipeline")`` overlaps the master's copy to the host with
@@ -59,8 +60,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from bauklank_tpu_torch.engine.batched import batched_process_chunk
 from bauklank_tpu_torch.engine.config import StretchConfig
+from bauklank_tpu_torch.engine.core import fast_stages
 from bauklank_tpu_torch.engine.drive import (deterministic_regime, fidelity_operands, geometry,
                                               packed_rows, unpack, uses_formants)
 from bauklank_tpu_torch.engine.fidelity import SpectralConfig, fidelity_stages
@@ -128,13 +129,31 @@ def _mixdown(out, gains, pans):
                         torch.sum(mono * g * pan_r, dim=0)])
 
 
-def _pool_step(config: StretchConfig, states, audios, packed):
+def _pool_step(config: StretchConfig, states, audios, packed, *,
+               graphs: StepGraphs | None = None):
     """One fast-engine pool step from the packed ``[S, H + 11]`` array
     (``engine.drive.unpack``: frame ends, the seven StretchParams fields,
-    gain and pan ramps).  Returns (states, master [2, n], streams)."""
-    ends, params, gains, pans = unpack(packed)
-    states, out = batched_process_chunk(config, states, audios, ends.to(torch.int32), params)
-    return states, _mixdown(out, gains, pans), out
+    gain and pan ramps).  ``graphs``: the pool's step graphs on the card,
+    with ``packed`` still on the host, as for :func:`_pool_step_fidelity`;
+    a step key is the gated program and the packed array's shape.
+    Returns (states, master [2, n], streams)."""
+    if graphs is None:
+        return _issue_fast(config, states, audios, packed, eager)
+    operands = [leaf for _, leaf in keyed_leaves(states)] + [audios]
+    return graphs.step((config, tuple(packed.shape)), packed, operands,
+                       lambda run, dev: _issue_fast(config, states, audios, dev, run))
+
+
+def _issue_fast(config: StretchConfig, states, audios, packed, run):
+    """:func:`_pool_step`'s work, through :func:`_issue`: the frame ends
+    and the fields, then ``engine.core.fast_stages`` in their ``fast.*``
+    ranges."""
+    def operands():
+        ends, params, _, _ = unpack(packed)
+        return ends.to(torch.int32), params
+
+    return _issue(run, packed, operands,
+                  lambda ends, params: fast_stages(config, states, audios, ends, params))
 
 
 def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
@@ -158,15 +177,25 @@ def _pool_step_fidelity(scfg: SpectralConfig, states, audios, packed,
 
 
 def _issue_fidelity(scfg: SpectralConfig, states, audios, packed, deterministic, run):
-    """:func:`_pool_step_fidelity`'s work as stages handed to ``run(range
-    name or None, stage)`` in step order: the unpacking, the engine's
-    stages in their ``fidelity.*`` ranges, the mixdown (the unpacking and
-    the mixdown with no range of their own: they are ``pool.step``'s).
-    Returns (states, master, streams) once every stage has run."""
+    """:func:`_pool_step_fidelity`'s work, through :func:`_issue`: the
+    blob's operands of the rows, then ``engine.fidelity.fidelity_stages``
+    in their ``fidelity.*`` ranges."""
+    return _issue(run, packed, lambda: fidelity_operands(scfg, packed),
+                  lambda *args: fidelity_stages(scfg, states, audios, *args,
+                                                deterministic=deterministic))
+
+
+def _issue(run, packed, operands, stages):
+    """A pool step's work as stages handed to ``run(range name or None,
+    stage)`` in step order: the unpacking (``operands()``), the engine's
+    stages (``stages(*operands)``: v and the (range name, stage) list),
+    the mixdown (the unpacking and the mixdown with no range of their own:
+    they are ``pool.step``'s).  Returns (states, master, streams) once
+    every stage has run."""
     out: dict = {}
-    run(None, lambda: out.update(args=fidelity_operands(scfg, packed)))
-    v, stages = fidelity_stages(scfg, states, audios, *out["args"], deterministic=deterministic)
-    for name, stage in stages:
+    run(None, lambda: out.update(args=operands()))
+    v, staged = stages(*out["args"])
+    for name, stage in staged:
         run(name, stage)
     run(None, lambda: out.update(master=_mixdown(v["emit"], *unpack(packed)[2:])))
     return v["states"], out["master"], v["emit"]
@@ -221,9 +250,8 @@ class StreamPool:
         self._audio_host = np.zeros((capacity, channels, self.max_track), np.float32)
         self._audio_dev: torch.Tensor | None = None
         self._audio_kept: torch.Tensor | None = None  # the tracks the step graphs read
-        # the fidelity step on the card replays CUDA graphs (serve/graphs.py)
-        self._graphs = (StepGraphs(self.device)
-                        if self.drive.graphs and self.device.type == "cuda" else None)
+        # the step on the card replays CUDA graphs (serve/graphs.py)
+        self._graphs = StepGraphs(self.device) if self.device.type == "cuda" else None
         self.states = self.drive.states(capacity, self.device)
         self.out_pos = 0  # output samples stepped so far
         self._last_streams: torch.Tensor | None = None  # [S, C, n] of the last step
@@ -411,24 +439,26 @@ class StreamPool:
             program = self.drive.gated(uses_formants(fields))
             self.formant_steps += program.formants
             audios = self._device_audio()
+            graphs = self._graphs
+            # with step graphs the packed array stays on the host until the
+            # graphs copy it into their own buffer
+            packed_t = torch.from_numpy(packed)
+            if graphs is None:
+                packed_t = packed_t.to(self.device)
             if self.engine == "fidelity":
                 deterministic = deterministic_regime(fields.rate, program.interval)
                 self.minstd_steps += not deterministic
-                graphs = self._graphs
-                if graphs is None:
-                    self.states, master, streams = _pool_step_fidelity(
-                        program, self.states, audios, torch.from_numpy(packed).to(self.device),
-                        deterministic)
-                else:
-                    states, master, streams = _pool_step_fidelity(
-                        program, self.states, audios, torch.from_numpy(packed), deterministic,
-                        graphs=graphs)
-                    # the step graphs read the pool's own state tensors
-                    tree_map(lambda mine, new: mine if mine is new else mine.copy_(new),
-                             self.states, states)
+                states, master, streams = _pool_step_fidelity(
+                    program, self.states, audios, packed_t, deterministic, graphs=graphs)
             else:
-                self.states, master, streams = _pool_step(
-                    program, self.states, audios, torch.from_numpy(packed).to(self.device))
+                states, master, streams = _pool_step(program, self.states, audios, packed_t,
+                                                     graphs=graphs)
+            if graphs is None:
+                self.states = states
+            else:
+                # the step graphs read the pool's own state tensors
+                tree_map(lambda mine, new: mine if mine is new else mine.copy_(new),
+                         self.states, states)
             self.out_pos += h * interval
             self._last_streams = streams
             if fetch == "pipeline":
@@ -495,7 +525,7 @@ class StreamPool:
         to the device (one after each batch of track changes); and
         ``table_builds``, constant tables built in the whole process
         (``utils.metrics.table_builds``), not by this pool alone; and, of
-        a fidelity pool on the card, ``graph_captures``, step keys whose
+        a pool on the card, ``graph_captures``, step keys whose
         CUDA graphs were captured (again after an operand was replaced),
         and ``graph_replays``, steps issued as graph replays (both 0
         elsewhere; ``graph_replays / steps`` is the graphs' hit share)."""

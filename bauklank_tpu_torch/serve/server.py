@@ -54,7 +54,7 @@ voice past time factor 2 (rate under 0.5: the MINSTD regime, slower);
 copies of every track to the card (one after each batch of track
 changes); ``table_builds``, constant tables built in the whole process,
 which should stop rising after a pool's first steps; ``graph_captures``
-and ``graph_replays``, a fidelity pool's step graphs on the card
+and ``graph_replays``, a pool's step graphs on the card (either engine)
 captured and replayed (``serve/graphs.py``).  A ``UnifiedPool``
 reports its own quanta's ``steps`` and ``late``, its ``buckets``, their
 counters summed under ``bucket_counters``, and ``table_builds``.

@@ -54,12 +54,13 @@ Phases (any failure raises and exits non-zero without the result line):
    padded rows), their masters held equal bit for bit; then 5 steps of
    the fidelity preset pool and of the fast pool with a formant voice, and
    ``pallas_gather`` driven directly, once;
-7. where the time goes: the fidelity pools replay their step graphs
-   (``serve/graphs.py``): each one's untraced step time with graphs, its
-   ``graph_replays / steps``, and an eager twin (the same pool with its
-   graphs taken off, as it stepped before the graphs), timed in the same
-   call, whose master must equal the served one bit for bit, and every
-   op under the twin's fidelity analysis (which must hold no pad); then
+7. where the time goes: the pools of both engines replay their step
+   graphs (``serve/graphs.py``): each one's untraced step time with
+   graphs, its ``graph_replays / steps``, and an eager twin (the same
+   pool with its graphs taken off, as it stepped before the graphs),
+   timed in the same call, whose master must equal the served one bit
+   for bit, and every op under the twin's analysis (which must hold no
+   pad); then
    a ``torch.profiler`` run of 5 more steps of each pool, split by the
    step's stages (host and device time each), the PyTorch ops that take
    most device time inside the gather stage, each kernel of the pool's
@@ -1049,7 +1050,7 @@ def step_pool(pool, warm: int, timed: int):
 
 
 def graphs_against_eager(kind: str, pool, served, warm: int, timed: int, card: str) -> None:
-    """A fidelity pool's step graphs against its eager twin: the served
+    """A pool's step graphs against its eager twin: the served
     steps' time (``served``: ms/step and the timed steps' master, from
     :func:`serve`), ``graph_replays / steps`` of ``pool``, and a twin from
     :func:`make_pool` with its graphs taken off (its steps run the eager
@@ -1087,14 +1088,15 @@ def graphs_against_eager(kind: str, pool, served, warm: int, timed: int, card: s
             below[child.name] = below.get(child.name, 0) + 1
             walk(child)
 
+    analyse = f"{pool.engine}.analyse"
     for e in prof.events():
-        if e.name == "fidelity.analyse" and e.device_type == torch.autograd.DeviceType.CPU:
+        if e.name == analyse and e.device_type == torch.autograd.DeviceType.CPU:
             walk(e)
-    log(f"[graphs] {kind} eager fidelity.analyse, every op below it: " + ", ".join(
+    log(f"[graphs] {kind} eager {analyse}, every op below it: " + ", ".join(
         f"{name} x{n:g}" for name, n in sorted(below.items())))
     pads = sorted(name for name in below if "pad" in name)
     if pads:
-        raise AssertionError(f"{kind}: the fidelity analysis ran {pads}")
+        raise AssertionError(f"{kind}: the {pool.engine} analysis ran {pads}")
     del twin
     torch.cuda.empty_cache()
 
@@ -2569,7 +2571,7 @@ def main(argv=None) -> int:
     del gather_args, out
 
     # 7. where the time goes: the step graphs against the eager step, then a profile
-    for kind in ("preset", "preset-fused", "kiosk"):
+    for kind in ("preset", "preset-fused", "kiosk", "fast"):
         graphs_against_eager(kind, pools[kind], served[kind], 2, timed[kind], card)
     for kind, pool in pools.items():
         where_time_goes(kind, pool, 5, step_ms[kind], card)

@@ -92,7 +92,8 @@ def test_fidelity_pool_with_a_formant_voice_matches_jax_pool(monkeypatch):
     seen = []
     step = pool_mod._pool_step_fidelity
     monkeypatch.setattr(pool_mod, "_pool_step_fidelity",
-                        lambda scfg, *a: (seen.append((scfg.formants, a[-1])), step(scfg, *a))[1])
+                        lambda scfg, *a, **kw: (seen.append((scfg.formants, a[-1])),
+                                                     step(scfg, *a, **kw))[1])
     pool = StreamPool(config=StretchConfig(block=1024, interval=256), device="cpu", **kw)
     got = _drive(pool, formants=True)
     assert got.shape == want.shape == (2, 4 * 8 * 256)
@@ -175,8 +176,9 @@ def test_fast_pool_matches_jax_pool(monkeypatch):
     want = _drive_fast(JStreamPool(config=JStretchConfig(block=1024, interval=256), **kw))
     formants = []
     step = pool_mod._pool_step
-    monkeypatch.setattr(pool_mod, "_pool_step", lambda cfg, *a: (formants.append(cfg.formants),
-                                                                 step(cfg, *a))[1])
+    monkeypatch.setattr(pool_mod, "_pool_step",
+                        lambda cfg, *a, **kw: (formants.append(cfg.formants),
+                                               step(cfg, *a, **kw))[1])
     pool = StreamPool(config=StretchConfig(block=1024, interval=256), device="cpu", **kw)
     assert pool.engine == "fast"
     got = _drive_fast(pool)

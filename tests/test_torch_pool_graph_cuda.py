@@ -1,22 +1,23 @@
-"""The fidelity pool's step graphs on the card (``serve/graphs.py``).
-Marked ``cuda``: each test skips unless a CUDA device and ``nvcc`` are
-present.
+"""The pools' step graphs on the card (``serve/graphs.py``), of both
+engines.  Marked ``cuda``: each test skips unless a CUDA device and
+``nvcc`` are present.
 
-A fidelity ``StreamPool`` on the card captures its step as CUDA graphs,
-once per step key, and replays them.  Each case steps such a pool beside
-an eager twin, a pool built alike with its graphs taken off
+A ``StreamPool`` on the card captures its step as CUDA graphs, once per
+step key, and replays them.  Each case steps such a pool beside an eager
+twin, a pool built alike with its graphs taken off
 (``tests.util.without_graphs``: its steps run the eager chain, as the
 pool stepped before it had graphs), and holds the masters, the streams
 and every state leaf equal with ``torch.equal`` after every step, and
-the pool's ``graph_captures`` and ``graph_replays`` at their counts: at
-the preset in the deterministic regime, at H = 1 with the regime
-flipping, at the kiosk's raw 8820/8820 geometry, with a formant voice
-turned on and off, across ``grow``, a checkpoint's save and load, and
-``load_track``.  Beside them: the returned tensors are the pool's own,
-not the graphs' memory; a replay runs the eager step's kernels, which
-the profiler sees, and the host issues none; and each fault the
-benchmark plants in the pool step (``portbench/core/faults.py``) changes
-what a replayed step returns.
+the pool's ``graph_captures`` and ``graph_replays`` at their counts: the
+fidelity engine at the preset in the deterministic regime, at H = 1 with
+the regime flipping and at the kiosk's raw 8820/8820 geometry; the fast
+engine at H = 1 and H = 32; either engine with a formant voice turned on
+and off, across ``grow``, a checkpoint's save and load, and
+``load_track``.  Beside them, of either engine: the returned tensors are
+the pool's own, not the graphs' memory; a replay runs the eager step's
+kernels, which the profiler sees, and the host issues none; and each
+fault the benchmark plants in the pool step (``portbench/core/faults.py``)
+changes what a replayed step returns.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ pytestmark = pytest.mark.cuda
 
 SR = 44100.0
 STEPS = 12
+ENGINES = ["fidelity", "fast"]
 
 
 @pytest.fixture
@@ -60,9 +62,9 @@ def _tone(freq: float, n: int) -> np.ndarray:
     return np.sin(2 * np.pi * freq / SR * np.arange(n) + 0.3).astype(np.float32)
 
 
-def _pool(dev, capacity=8, hops=8, rates=None, semitones=None, **geometry):
-    """A fidelity pool with a tone a voice, every voice started."""
-    pool = StreamPool(capacity=capacity, hops_per_step=hops, engine="fidelity",
+def _pool(dev, capacity=8, hops=8, rates=None, semitones=None, engine="fidelity", **geometry):
+    """A pool of ``engine`` with a tone a voice, every voice started."""
+    pool = StreamPool(capacity=capacity, hops_per_step=hops, engine=engine,
                       max_track_sec=4.0, device=dev, **geometry)
     rates = np.linspace(0.5, 2.0, capacity) if rates is None else rates
     semitones = np.linspace(-12.0, 12.0, capacity) if semitones is None else semitones
@@ -132,41 +134,58 @@ def test_kiosk_raw_geometry(dev):
     _counts(pool, 1)
 
 
-def test_formant_voice_on_then_off(dev):
+@pytest.mark.parametrize("hops,steps", [(1, STEPS), (32, 6)])
+def test_fast_replays_equal_the_eager_step(dev, hops, steps):
+    """The fast engine as ``serve`` steps it (H = 1) and in batch (H = 32,
+    fewer voices): one key, captured once, every later step a replay."""
+    rates = [0.3, 0.5, 0.8, 1.2]
+    pool, keys = _lockstep(lambda: _pool(dev, capacity=4, hops=hops, rates=rates, engine="fast"),
+                           steps=steps)
+    assert pool.engine == "fast" and keys == [(4, 0, 0)] * steps
+    _counts(pool, 1, steps)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_formant_voice_on_then_off(dev, engine):
     def formant(value):
         return lambda p: p.apply_set("s02", "formantSemitones", value, lookahead=0.0)
 
-    pool, keys = _lockstep(lambda: _pool(dev, capacity=4, hops=2),
+    pool, keys = _lockstep(lambda: _pool(dev, capacity=4, hops=2, engine=engine),
                            events={4: [formant(4.0)], 8: [formant(0.0)]})
     assert [k[2] for k in keys] == [0] * 4 + [1] * 4 + [0] * 4
     _counts(pool, 2)
 
 
-def test_grow_recaptures(dev):
-    pool, keys = _lockstep(lambda: _pool(dev, capacity=4, hops=2),
+@pytest.mark.parametrize("engine", ENGINES)
+def test_grow_recaptures(dev, engine):
+    pool, keys = _lockstep(lambda: _pool(dev, capacity=4, hops=2, engine=engine),
                            events={6: [lambda p: p.grow(6)]})
     assert [k[0] for k in keys] == [4] * 6 + [6] * 6
     _counts(pool, 2)
 
 
-def test_checkpoint_save_and_load(dev, tmp_path):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_checkpoint_save_and_load(dev, engine, tmp_path):
     path = tmp_path / "pool"
     events = {6: [lambda p: checkpoint.save_pool(path, p),
                   lambda p: checkpoint.load_pool(path, p)]}
-    pool, _ = _lockstep(lambda: _pool(dev, capacity=4, hops=2), events=events)
+    pool, _ = _lockstep(lambda: _pool(dev, capacity=4, hops=2, engine=engine), events=events)
     _counts(pool, 2)
 
 
-def test_load_track_keeps_the_graphs(dev):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_load_track_keeps_the_graphs(dev, engine):
     x = _tone(523.25, int(2 * SR))
-    pool, _ = _lockstep(lambda: _pool(dev, capacity=4, hops=2),
+    pool, _ = _lockstep(lambda: _pool(dev, capacity=4, hops=2, engine=engine),
                         events={6: [lambda p: p.load_track("s01", [x, 0.5 * x])]})
     _counts(pool, 1)
     assert pool.metrics()["audio_uploads"] == 2
 
 
-def test_pipelined_fetch_with_graphs(dev):
-    pool, twin = _pool(dev, capacity=4, hops=2), without_graphs(_pool(dev, capacity=4, hops=2))
+@pytest.mark.parametrize("engine", ENGINES)
+def test_pipelined_fetch_with_graphs(dev, engine):
+    pool = _pool(dev, capacity=4, hops=2, engine=engine)
+    twin = without_graphs(_pool(dev, capacity=4, hops=2, engine=engine))
     got = [m for m in (pool.step(fetch="pipeline")[0] for _ in range(8)) if m is not None]
     got += pool.drain()
     want = [twin.step(fetch=True)[0] for _ in range(8)]
@@ -174,8 +193,9 @@ def test_pipelined_fetch_with_graphs(dev):
     _counts(pool, 1, 8)
 
 
-def test_returned_tensors_are_not_the_graphs_memory(dev):
-    pool = _pool(dev, capacity=4, hops=2)
+@pytest.mark.parametrize("engine", ENGINES)
+def test_returned_tensors_are_not_the_graphs_memory(dev, engine):
+    pool = _pool(dev, capacity=4, hops=2, engine=engine)
     for _ in range(3):
         pool.step()
     master, streams = pool.step()
@@ -190,15 +210,22 @@ def test_returned_tensors_are_not_the_graphs_memory(dev):
     _counts(pool, 1, 5)
 
 
-def test_replays_run_the_eager_steps_kernels(dev):
+# each engine's own kernels, launched once a step or more
+OWN = {"fidelity": {"band_chain": 2, "smooth_pair": 1},
+       "fast": {"frames_windowed": 1, "banded_interp": 1}}
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_replays_run_the_eager_steps_kernels(dev, engine):
     """The host issues the step's launches twice, in the eager first step
     and into the capture, and none for a replay; the profiler sees the
     replays run each kernel as often as the eager step launches it."""
-    pool, twin = _pool(dev, capacity=4, hops=2), without_graphs(_pool(dev, capacity=4, hops=2))
+    pool = _pool(dev, capacity=4, hops=2, engine=engine)
+    twin = without_graphs(_pool(dev, capacity=4, hops=2, engine=engine))
     kernels.reset_launches()
     twin.step()
     per_step = dict(kernels.LAUNCHES)
-    assert per_step["band_chain"] == 2 and per_step["smooth_pair"] == 1
+    assert {k: per_step[k] for k in OWN[engine]} == OWN[engine]
     kernels.reset_launches()
     for _ in range(2):
         pool.step()
@@ -218,17 +245,18 @@ def test_replays_run_the_eager_steps_kernels(dev):
     _counts(pool, 1, 5)
 
 
+@pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_planted_faults_change_the_replayed_steps(dev, fault):
-    """The benchmark's faults wrap ``serve.pool._pool_step_fidelity``,
-    which a pool with graphs calls on every step: a faulted pool's third
-    step, a replay, returns other streams or another master than a clean
-    pool's."""
-    clean = _pool(dev, capacity=4, hops=2)
+def test_planted_faults_change_the_replayed_steps(dev, fault, engine):
+    """The benchmark's faults wrap ``serve.pool._pool_step`` or
+    ``_pool_step_fidelity``, which a pool with graphs calls on every step:
+    a faulted pool's third step, a replay, returns other streams or
+    another master than a clean pool's."""
+    clean = _pool(dev, capacity=4, hops=2, engine=engine)
     want = [clean.step() for _ in range(3)][-1]
-    undo = plant(fault, "fidelity")
+    undo = plant(fault, engine)
     try:
-        faulted = _pool(dev, capacity=4, hops=2)
+        faulted = _pool(dev, capacity=4, hops=2, engine=engine)
         got = [faulted.step() for _ in range(3)][-1]
     finally:
         undo()

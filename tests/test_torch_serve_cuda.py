@@ -1,15 +1,16 @@
 """The port's server on the card.  Marked ``cuda``: each test skips unless
 a CUDA device and ``nvcc`` are present.
 
-A fidelity ``ControlServer``'s render loop steps its pool in worker
-threads (``asyncio.to_thread``); its masters must equal, bit for bit,
-those of a twin pool stepped directly in the test's thread.  ``analyze``
-runs in other worker threads while steps run: every analysis it returns
-must be that of a finished step (equal to the twin's analysis after one
-of its steps), and every worker thread must see the device's one default
-stream.  The pools replay their step graphs (``serve/graphs.py``) after
-the first step, and the served masters equal those of the eager chain
-too.  The proof at the serving size is ``chip_smoke.py`` phase 9.
+A ``ControlServer``'s render loop steps its pool in worker threads
+(``asyncio.to_thread``); its masters must equal, bit for bit, those of a
+twin pool stepped directly in the test's thread.  ``analyze`` runs in
+other worker threads while steps run: every analysis it returns must be
+that of a finished step (equal to the twin's analysis after one of its
+steps), and every worker thread must see the device's one default
+stream.  The pools (of either engine) replay their step graphs
+(``serve/graphs.py``) after the first step, and the served masters equal
+those of the eager chain too.  The proof at the serving size is
+``chip_smoke.py`` phase 9.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ def _tone(freq: float, n: int) -> np.ndarray:
     return np.sin(2 * np.pi * freq / SR * np.arange(n) + 0.3).astype(np.float32)
 
 
-def _pool(dev) -> StreamPool:
-    pool = StreamPool(capacity=2, names=["A", "B"], engine="fidelity", max_track_sec=4.0,
+def _pool(dev, engine="fidelity") -> StreamPool:
+    pool = StreamPool(capacity=2, names=["A", "B"], engine=engine, max_track_sec=4.0,
                       device=dev)
     x = _tone(440.0, int(3 * SR))
     pool.load_track("A", [x, x])
@@ -97,13 +98,14 @@ def test_render_loop_masters_equal_a_direct_pool(dev):
         assert kernels.LAUNCHES[k] > 0, k
 
 
-def test_render_loop_with_graphs_equals_the_eager_step(dev):
+@pytest.mark.parametrize("engine", ["fidelity", "fast"])
+def test_render_loop_with_graphs_equals_the_eager_step(dev, engine):
     """The served pool replays its step graphs from the loop's worker
     threads; its masters equal those of a twin without graphs, stepped in
     this thread."""
-    twin = without_graphs(_pool(dev))
+    twin = without_graphs(_pool(dev, engine))
     direct = [twin.step(fetch=True)[0] for _ in range(STEPS)]
-    served = _pool(dev)
+    served = _pool(dev, engine)
     masters = _render(served)
     m = served.metrics()
     assert m["graph_captures"] == 1 and m["graph_replays"] == m["steps"] - 1 >= STEPS - 1

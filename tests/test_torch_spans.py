@@ -119,7 +119,7 @@ def test_formant_steps_count_the_steps_that_ran_the_formant_chain(engine, monkey
     seen = []
     step = getattr(pool_mod, attr)
     monkeypatch.setattr(pool_mod, attr,
-                        lambda cfg, *a: (seen.append(cfg.formants), step(cfg, *a))[1])
+                        lambda cfg, *a, **kw: (seen.append(cfg.formants), step(cfg, *a, **kw))[1])
     pool = _pool(engine)
     pool.step()
     assert pool.apply_set("s00", "formantSemitones", -3.0, lookahead=0.0)

@@ -71,8 +71,8 @@ def tone(freq: float, n: int, sample_rate: float = 1.0, phase: float = 0.3):
 
 def without_graphs(pool):
     """``pool`` with its step graphs taken off (``serve/graphs.py``): its
-    steps run the eager chain through ``serve.pool._pool_step_fidelity``
-    as a pool off the card does, with the pool's own packing, regime and
-    formant gate.  Returns ``pool``."""
+    steps run the eager chain through ``serve.pool._pool_step`` or
+    ``_pool_step_fidelity`` as a pool off the card does, with the pool's
+    own packing, regime and formant gate.  Returns ``pool``."""
     pool._graphs = None
     return pool
