@@ -12,7 +12,8 @@ program over a dozen seeds or more and below the smallest of the
 control's (PERF.md gives the readings).  It needs the card, as a run does.
 
 ``--fault`` plants one of ``core/faults.py``'s faults under the timed
-path.  ``--witness`` runs each seed a second time with the program on
+path (``formants_dropped`` too, which only a cell with formant voices can
+have).  ``--witness`` runs each seed a second time with the program on
 the CPU (the same audio, made by the card's generator) and compares the
 first step, which both sides render from a fresh state, voice by voice:
 the program on the card and on the CPU against each other and each

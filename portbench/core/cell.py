@@ -46,6 +46,7 @@ import numpy as np
 
 from portbench.core import check, spec, synth
 from portbench.core.traffic import Traffic
+from portbench.reference.drive import FORMANT_KEYS
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "bauklank_tpu")
 
@@ -144,6 +145,18 @@ def pool_arguments(cfg: dict, stream_pool) -> dict:
     return given
 
 
+def hold_formants(mix: dict, engine: str, ref) -> None:
+    """A traffic mix that sets a formant control (at the start or in a
+    turn) needs a reference with a formant chain, which it declares as
+    ``FORMANTS``; without one the cell is refused here, before the kernel
+    library and the pool are built."""
+    for key in list(mix["initial"]) + list(mix["turn_keys"]):
+        if key in FORMANT_KEYS and not getattr(ref, "FORMANTS", False):
+            raise SystemExit(f"error: the traffic sets {key!r}, and the reference of the "
+                             f"{engine!r} engine (portbench/reference/{engine}.py) has no "
+                             "formant chain to check it against")
+
+
 def _hold_geometry(pool, cfg: dict, given: dict) -> None:
     """The configuration file's geometry, which the reference is built
     from, has to be the one the program's pool runs."""
@@ -167,6 +180,8 @@ class _Pool:
 
         cfg, mix = cell.config, cell.traffic
         self.pool_args = pool_arguments(cfg, StreamPool)
+        self.ref = spec.reference(cell.root, cfg["engine"])
+        hold_formants(mix, cfg["engine"], self.ref)
         self.marks = [("import", time.perf_counter())]
         if device == "cuda":
             from bauklank_tpu_torch.kernels import build
@@ -175,7 +190,6 @@ class _Pool:
         self.marks.append(("kernel library", time.perf_counter()))
         self.voices, self.hops = int(mix["voices"]), int(mix["hops_per_step"])
         sr, channels = float(cfg["sample_rate"]), int(cfg["channels"])
-        self.ref = spec.reference(cell.root, cfg["engine"])
         self.geo = self.ref.geometry(cfg)
         self.names = [f"v{i:03d}" for i in range(self.voices)]
         self.pool = StreamPool(capacity=self.voices, sample_rate=sr, channels=channels,

@@ -24,8 +24,14 @@ cell's limits:
 - ``master_err``: the master against the reference's mixdown of its own
   streams, relative;
 - ``state_spectrum``, ``state_tail``: the carried state of all voices,
-  relative (and ``state_rng``, the MINSTD states that differ, where the
-  engine has one).
+  relative (and ``state_rng``, the MINSTD states that differ, and
+  ``state_formant``, the two formant f0 trackers of all voices, relative,
+  where the engine has them).
+
+Each step's controls are the seven of ``drive.CONTROLS``, the formant
+controls among them; a reference without a formant chain reads only the
+first four, and a cell whose traffic sets a formant control is refused
+for it at set-up (``core/cell.py``).
 
 The control (``control=True``) puts the reference computed in bfloat16 in
 the program's place, from the same states.
@@ -98,8 +104,7 @@ def compare(ref, geo, audio, sets, voices: int, hops: int, track_sec: float, sam
     starts = [ref.init_state(geo, voices, dev) if s["before"] is None
               else ref.state_from_program(geo, s["before"], dev) for s in samples]
     ends = t(np.concatenate([host[k]["ends"] for k in wanted]))
-    ctl = {key: t(np.concatenate([host[k][key] for k in wanted]))
-           for key in ("rate", "semitones", "tonality_hz", "active")}
+    ctl = {key: t(np.concatenate([host[k][key] for k in wanted])) for key in drive.CONTROLS}
     rows = t(np.tile(np.arange(voices), len(samples)))
     ramps = [(t(host[k]["gains"]), t(host[k]["pans"])) for k in wanted]
     state, out = ref.step(geo, _cat(starts), audio, ends, ctl, voices=rows)

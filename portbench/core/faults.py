@@ -9,8 +9,17 @@ out not correct for: the program's pool step wrapped so that it
   hundredth of the median voice's (below the median, where a comparison
   scaled by the median voice would not see it).
 
+Apart from those, since only a cell with formant voices can have it:
+
+- ``formants_dropped``: hands the step every voice's formant controls as
+  neutral (factor 1, no compensation), the base and the step's program
+  as they were.
+
 ``plant(name, engine)`` wraps the engine's step in
 ``bauklank_tpu_torch.serve.pool`` and returns the function that undoes it.
+The wrapped step is the one the pool calls on both of its paths: on the
+card its CUDA graphs copy the packed rows they are handed before every
+replay, so a fault reaches the replayed steps as well as the eager ones.
 """
 
 from __future__ import annotations
@@ -55,7 +64,21 @@ def silent_voice(step):
     return wrapped
 
 
+def formants_dropped(step):
+    from bauklank_tpu_torch.engine.drive import unpack
+
+    def wrapped(*args, **kw):
+        packed = args[3].clone()
+        fields = unpack(packed)[1]
+        fields.formant_factor.fill_(1.0)
+        fields.formant_compensation.fill_(0.0)
+        return step(*args[:3], packed, *args[4:], **kw)
+    return wrapped
+
+
 FAULTS = {f.__name__: f for f in (stale_state, half_batch, altered_answer, silent_voice)}
+# faults that only a cell with formant voices can have
+FORMANT_FAULTS = {f.__name__: f for f in (formants_dropped,)}
 
 
 def plant(name: str, engine: str):
@@ -63,5 +86,5 @@ def plant(name: str, engine: str):
 
     attr = "_pool_step_fidelity" if engine == "fidelity" else "_pool_step"
     orig = getattr(pool, attr)
-    setattr(pool, attr, FAULTS[name](orig))
+    setattr(pool, attr, {**FAULTS, **FORMANT_FAULTS}[name](orig))
     return lambda: setattr(pool, attr, orig)

@@ -5,7 +5,8 @@ A mix file gives the pool's width and step (``voices``,
 start (``initial``: key -> distribution), the mean output time between
 one voice's knob turns (``turn_every_s``) and the keys a turn redraws
 (``turn_keys``), and the loop.  A distribution is ``{"dist": "uniform" |
-"loguniform", "lo": a, "hi": b}`` or ``{"value": v}``.
+"loguniform", "lo": a, "hi": b}``, ``{"dist": "choice", "values": [v, ...]}``
+(each value as likely; repeat one to weight it) or ``{"value": v}``.
 
 Turns are placed in each voice's output time, not wall time: a voice
 turns at output times drawn from its own stream of the seed, and a turn
@@ -24,6 +25,9 @@ def _draw(rng: np.random.Generator, dist: dict, n: int | None = None):
     if "value" in dist:
         v = dist["value"]
         return v if n is None else np.full(n, v)
+    if dist["dist"] == "choice":
+        values = np.asarray(dist["values"], dtype=float)
+        return values[rng.integers(len(values), size=n)]
     lo, hi = float(dist["lo"]), float(dist["hi"])
     if dist["dist"] == "loguniform":
         return np.exp(rng.uniform(np.log(lo), np.log(hi), n))

@@ -10,7 +10,11 @@ inserts a segment at the output time it names, inheriting the controls
 it does not set from the segment it replaces or the last one before it,
 with its input time extrapolated at the previous segment's rate (0 while
 inactive); the playhead drops passed segments and wraps once into the
-loop when it reaches the loop's end.
+loop when it reaches the loop's end.  The formant controls
+(``formantSemitones``, ``formantCompensation``, ``formantBaseHz``) are
+fields of the time map like the others, with the program's defaults (0,
+off, 0 = detect the base) and clamps, and are given for each voice as the
+program packs them.
 """
 
 from __future__ import annotations
@@ -23,9 +27,14 @@ import torch
 # control keys of the wire protocol and their segment fields
 _FIELDS = {"rate": "rate", "semitones": "semitones", "tone": "semitones",
            "tonalityHz": "tonality_hz", "loopStart": "loop_start", "loopEnd": "loop_end",
-           "active": "active", "input": "input"}
+           "active": "active", "input": "input", "formantSemitones": "formant_semitones",
+           "formantCompensation": "formant_compensation", "formantBaseHz": "formant_base_hz"}
 _CLAMPS = {"rate": (1e-5, 2.0), "semitones": (-48.0, 48.0), "tone": (-48.0, 48.0),
-           "tonalityHz": (20.0, 22050.0)}
+           "tonalityHz": (20.0, 22050.0), "formantSemitones": (-48.0, 48.0),
+           "formantBaseHz": (0.0, 2000.0)}
+# the wire keys of the formant controls: a reference replays them only
+# where it declares ``FORMANTS``
+FORMANT_KEYS = ("formantSemitones", "formantCompensation", "formantBaseHz")
 
 
 @dataclasses.dataclass
@@ -36,6 +45,9 @@ class _Seg:
     rate: float = 1.0
     semitones: float = 0.0
     tonality_hz: float = 8000.0
+    formant_semitones: float = 0.0
+    formant_compensation: bool = False
+    formant_base_hz: float = 0.0
     loop_start: float = 0.0
     loop_end: float = 0.0
 
@@ -94,21 +106,33 @@ def _set(v: _Voice, key: str, value, out_time: float, lookahead: float) -> None:
     v.schedule(_FIELDS[key], value, out_time + lookahead)
 
 
+CONTROLS = ("rate", "semitones", "tonality_hz", "active", "formant_factor",
+            "formant_compensation", "formant_base")
+
+
+def _controls(seg: _Seg, sr: float) -> dict:
+    """A segment's controls as a step takes them (``CONTROLS``)."""
+    return dict(rate=seg.rate, semitones=seg.semitones, tonality_hz=seg.tonality_hz,
+                active=float(seg.active), formant_factor=2.0 ** (seg.formant_semitones / 12.0),
+                formant_compensation=1.0 if seg.formant_compensation else 0.0,
+                formant_base=seg.formant_base_hz / sr)
+
+
 def replay(geo, n_voices: int, hops: int, track_sec: float, sets, wanted):
     """Each wanted step's host side.  ``sets``: (step, voice, key, value,
     lookahead) in the order they were sent, each before its step; ``geo``
     carries sample_rate, interval, out_lat, centre and block.  Returns
     {step: dict(ends [S, H] int64, rate, semitones, tonality_hz, active,
-    gains [S, 2], pans [S, 2])}."""
+    formant_factor (2^(st/12)), formant_compensation (1 or 0),
+    formant_base (Hz over the sample rate), gains [S, 2], pans [S, 2])}."""
     sr, interval, block = geo.sample_rate, geo.interval, geo.block
     last = max(wanted)
     by_voice = [[] for _ in range(n_voices)]
     for st, voice, key, value, la in sets:
         by_voice[voice].append((st, key, value, la))
-    out = {k: dict(ends=np.zeros((n_voices, hops), np.int64), rate=np.zeros(n_voices),
-                   semitones=np.zeros(n_voices), tonality_hz=np.zeros(n_voices),
-                   active=np.zeros(n_voices), gains=np.zeros((n_voices, 2)),
-                   pans=np.zeros((n_voices, 2)))
+    out = {k: dict(ends=np.zeros((n_voices, hops), np.int64),
+                   gains=np.zeros((n_voices, 2)), pans=np.zeros((n_voices, 2)),
+                   **{c: np.zeros(n_voices) for c in CONTROLS})
            for k in wanted}
     for s in range(n_voices):
         v = _Voice(track_sec)
@@ -127,8 +151,8 @@ def replay(geo, n_voices: int, hops: int, track_sec: float, sets, wanted):
             if k in out:
                 o = out[k]
                 o["ends"][s] = ends
-                o["rate"][s], o["semitones"][s] = seg.rate, seg.semitones
-                o["tonality_hz"][s], o["active"][s] = seg.tonality_hz, float(seg.active)
+                for c, value in _controls(seg, sr).items():
+                    o[c][s] = value
                 o["gains"][s] = (v.prev_volume, v.volume)
                 o["pans"][s] = (v.prev_pan, v.pan)
             v.prev_volume, v.prev_pan = v.volume, v.pan

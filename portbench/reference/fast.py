@@ -33,6 +33,9 @@ import numpy as np
 import torch
 
 F64, C128 = torch.float64, torch.complex128
+# no formant chain here: a cell whose traffic sets a formant control is
+# refused at set-up (core/cell.py)
+FORMANTS = False
 
 
 def _ident(x):

@@ -13,8 +13,28 @@ the program.
 
 One call renders ``H`` hops of ``N`` independent streams from their
 carried state: the analyses of the frames ending at ``ends``, the hop
-chain (peaks map, MINSTD vertical steps, predictions, the band chain),
-then the synthesis and the overlap-add with the carried tail.
+chain (peaks map, the formant chain, MINSTD vertical steps, predictions,
+the band chain), then the synthesis and the overlap-add with the carried
+tail.
+
+The formant chain (the blob's step 5, the port's
+``engine/spectral.py:chain_inputs_drawn`` written per hop) runs for a
+stream that is formant-active: its formant factor is not 1, or it
+compensates and transposes.  Its envelope is the square root of the
+hop's channel-summed energy, smoothed by the two-pass smoother with one
+coefficient a stream, ``1 / (width / 2 + 1)``; the width is the given
+base's (``base * fft - 0.5``), or with base 0 the tracked f0's: the top
+three local maxima of the energy, two harmonic folds, and 1/16 EMAs of
+the peak and of the peak times its band (the trackers, carried in the
+state), advanced hop after hop only where the stream is active.  The
+envelope is read at the formant-mapped frequency, and the squared ratio
+of the two is a gain on the channel energies that the predictions
+gather; the peaks map reads the energy before the gain, as the port's
+does.  A stream that is not active gets the gain 1 and frozen trackers,
+and a step in which no stream is active, or that is given no formant
+control, runs no chain: it returns the same bits as without one.
+Departures from the port: the peak pick takes float64 energies, so it
+can pick another band than the program's float32 at a near-tie.
 
 ``rnd`` is applied to every stage's result: the identity for the
 reference, a rounding to a lower precision for the control.
@@ -33,6 +53,10 @@ EPS = 1e-15                 # the blob's noise floor
 MINSTD_M = 2147483647       # 2^31 - 1
 MINSTD_A = 48271
 F64, C128 = torch.float64, torch.complex128
+# the formant chain is here: a cell may set the formant controls
+FORMANTS = True
+# the blob's epsilon in the formant ratio: the float32 of the bits 0x0DA24260
+FORMANT_TINY = float(np.frombuffer(np.uint32(0x0DA24260).tobytes(), np.float32)[0])
 
 
 def _ident(x):
@@ -143,18 +167,34 @@ def synthesise(geo: Geometry, specs, rnd=_ident):
 
 
 # ------------------------------------------------------------- one hop
-def _smooth(e, coef: float, carry):
+def _smooth(e, coef, carry):
     """The blob's two-pass one-pole smoother (backward, then forward from
     the backward pass's first value): y_b = y_prev + coef (e_b - y_prev).
-    e [N, B], carry [N] -> (smoothed [N, B], carry [N]); a direct
-    recursion (``scipy.signal.lfilter``) on the host."""
+    e [N, B], carry [N], ``coef`` a float or a tensor [N] of one a row ->
+    (smoothed [N, B], carry [N]); a direct recursion
+    (``scipy.signal.lfilter``) on the host."""
     x, c = e.cpu().numpy(), carry.cpu().numpy()
+    if torch.is_tensor(coef):
+        fwd = np.concatenate([_smooth_rows(x[i:i + 1], k, c[i:i + 1])
+                              for i, k in enumerate(coef.tolist())] or [x])
+    else:
+        fwd = _smooth_rows(x, coef, c)
+    out = torch.from_numpy(np.ascontiguousarray(fwd)).to(e.device)
+    return out, out[:, -1]
+
+
+def _smooth_rows(x, coef: float, c):
     b, a = [coef], [1.0, -(1.0 - coef)]
     bwd, _ = lfilter(b, a, x[:, ::-1], axis=-1, zi=((1.0 - coef) * c)[:, None])
     bwd = bwd[:, ::-1]
     fwd, _ = lfilter(b, a, bwd, axis=-1, zi=((1.0 - coef) * bwd[:, :1]))
-    out = torch.from_numpy(np.ascontiguousarray(fwd)).to(e.device)
-    return out, out[:, -1]
+    return fwd
+
+
+def _smooth_twice(e, coef):
+    """The two chained smoothers, the second from the first's carry."""
+    sm, carry = _smooth(e, coef, torch.zeros(e.shape[0], dtype=F64, device=e.device))
+    return _smooth(sm, coef, carry)[0]
 
 
 def peaks_map(energy, smoothed, mult, limit, fft: int):
@@ -304,10 +344,73 @@ def band_chain(d1, d2, u12, pe_mc, pi_mc, mc, lock, pred_energy, pred_input, lon
     return torch.from_numpy(np.moveaxis(out, 0, -1)).to(dev)              # [N, C, B]
 
 
-def hop(geo: Geometry, state: dict, cur, prev, tf, mult, limit, rnd=_ident):
+def formant_peak(env_e):
+    """The auto-f0 tracker's look at one hop of N streams: env_e [N, B] ->
+    (peak value [N], folded band [N] int64).  The blob scans the bands in
+    order keeping the three largest local maxima (``v >= left`` and ``v >
+    right``), seeded with three copies of band 0; a band enters only above
+    the third, and a tie keeps the earlier band first.  That is the first
+    three of the seeds and then the candidates, in band order, sorted
+    stably by value from the largest.  Then the two harmonic folds."""
+    n, bands = env_e.shape
+    dev = env_e.device
+    v = env_e[:, 1:-1]
+    cand = (v >= env_e[:, :-2]) & (v > env_e[:, 2:])
+    vals = torch.cat([env_e[:, :1].expand(n, 3), torch.where(cand, v, -torch.inf)], dim=1)
+    band = torch.cat([torch.zeros(3, dtype=torch.int64, device=dev),
+                      torch.arange(1, bands - 1, device=dev)])
+    top = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :3]
+    (pv, e2, e4), (i5, i2, i4) = torch.gather(vals, 1, top).T, band[top].T
+    do1 = e2 > pv * 0.1
+    d1 = (i5 - i2).abs()
+    fold1 = do1 & ~((d1 <= i5 // 8) | (d1 >= (i5 * 7) // 8))
+    i5 = torch.where(fold1, i5 % torch.clamp_min(d1, 1), i5)
+    do2 = do1 & (e4 > pv * 0.01)
+    d2 = (i5 - i4).abs()
+    fold2 = do2 & ~((d2 <= i5 // 8) | (d2 >= (i5 * 7) // 8))
+    return pv, torch.where(fold2, i5 % torch.clamp_min(d2, 1), i5)
+
+
+def formant_active(mult, factor, compensation):
+    """Whether each stream runs the formant chain: a formant factor that
+    is not 1, or compensation of a transposition."""
+    return (factor != 1.0) | ((compensation != 0.0) & (mult != 1.0))
+
+
+def formant_gain(geo: Geometry, env_e, value_ema, weighted_ema, mult, limit, factor,
+                 compensation, base, rnd=_ident):
+    """The formant chain of one hop of N streams: env_e [N, B] the
+    channel-summed energy, the trackers and the controls [N].  Returns
+    (gain [N, B] on the channel energies, value_ema, weighted_ema)."""
+    bands, fft = env_e.shape[1], geo.fft
+    active = formant_active(mult, factor, compensation)
+    auto = base <= 0.0
+    pv, band = formant_peak(env_e)
+    move = active & auto
+    value_ema = torch.where(move, value_ema + (pv - value_ema) * 0.0625, value_ema)
+    weighted_ema = torch.where(move, weighted_ema + (pv * band - weighted_ema) * 0.0625,
+                               weighted_ema)
+    width = torch.where(auto, weighted_ema / (value_ema + FORMANT_TINY), base * fft - 0.5)
+    sm = rnd(_smooth_twice(torch.sqrt(env_e), 1.0 / (width * 0.5 + 1.0)))
+    freq = (torch.arange(bands, dtype=F64, device=env_e.device)[None] + 0.5) / fft
+    m, lim, f = mult[:, None], limit[:, None], factor[:, None]
+    # compensation looks the envelope up where the transposition put the band
+    fr = torch.where(compensation[:, None] != 0.0,
+                     torch.where(freq > lim, freq + (m - 1.0) * lim, freq * m), freq)
+    fm = fr / f
+    fm = torch.where(fm > lim, (1.0 - f) * lim + fr, fm)
+    pos = fm * fft - 0.5
+    env_m = torch.where(pos < 0.0, 0.0, _gather(sm[:, None], pos)[:, 0])
+    gain = torch.where(active[:, None], (env_m / (sm + FORMANT_TINY)) ** 2, 1.0)
+    return rnd(gain), value_ema, weighted_ema
+
+
+def hop(geo: Geometry, state: dict, cur, prev, tf, mult, limit, rnd=_ident, formant=None):
     """One hop of N streams: state (prev_output [N, C, B], prev_pred_energy
-    [N, C, B], rng [N]), this hop's analyses cur and prev [N, C, B], and
-    the controls [N].  Returns (state, out [N, C, B])."""
+    [N, C, B], rng [N], the formant trackers [N]), this hop's analyses cur
+    and prev [N, C, B], and the controls [N]; ``formant`` the formant
+    factor, compensation and base [N], or None for no formant chain.
+    Returns (state, out [N, C, B])."""
     n, c, bands = cur.shape
     dev = cur.device
     L = geo.long_step
@@ -316,9 +419,12 @@ def hop(geo: Geometry, state: dict, cur, prev, tf, mult, limit, rnd=_ident):
     energy_c = cur.abs() ** 2
     energy = rnd(energy_c.sum(1))                                         # [N, B]
     coef = 1.0 / (0.5 * (geo.fft / geo.interval) + 1.0)
-    sm, carry = _smooth(energy, coef, torch.zeros(n, dtype=F64, device=dev))
-    sm, _ = _smooth(sm, coef, carry)
+    sm = _smooth_twice(energy, coef)
     ib_m, gr_m = peaks_map(energy, rnd(sm), mult, limit, geo.fft)
+    trackers = state["f_value_ema"], state["f_weighted_ema"]
+    if formant is not None:
+        gain, *trackers = formant_gain(geo, energy, *trackers, mult, limit, *formant, rnd)
+        energy_c = energy_c * gain[:, None]
 
     use = tf > 2.0
     n_draws = 2 * bands - 2
@@ -357,16 +463,20 @@ def hop(geo: Geometry, state: dict, cur, prev, tf, mult, limit, rnd=_ident):
     u12 = rnd((_shift(timepred, 1) * k1).sum(1) + (_shift(timepred, L) * k2).sum(1))
     out = band_chain(d1, d2, u12, rnd(sel(pred_energy)), rnd(pi_mc), mc, lock,
                      rnd(pred_energy), pred_input, L, rnd)
-    return dict(prev_output=out, prev_pred_energy=pred_energy, rng=new_rng), out
+    return dict(prev_output=out, prev_pred_energy=pred_energy, rng=new_rng,
+                f_value_ema=trackers[0], f_weighted_ema=trackers[1]), out
 
 
 # ------------------------------------------------------------ one step
 def init_state(geo: Geometry, n: int, device, seed: int = 1) -> dict:
-    """The engine's fresh state: silence carried, MINSTD seeded with ``seed``."""
+    """The engine's fresh state: silence carried, MINSTD seeded with
+    ``seed``, the formant trackers at 0."""
     shape = (n, geo.channels, geo.bands)
     return dict(prev_output=torch.zeros(shape, dtype=C128, device=device),
                 prev_pred_energy=torch.zeros(shape, dtype=F64, device=device),
                 rng=torch.full((n,), seed, dtype=torch.int64, device=device),
+                f_value_ema=torch.zeros(n, dtype=F64, device=device),
+                f_weighted_ema=torch.zeros(n, dtype=F64, device=device),
                 tail=torch.zeros((n, geo.channels, geo.block + geo.interval), dtype=F64,
                                  device=device))
 
@@ -378,7 +488,8 @@ def state_from_program(geo: Geometry, tree, device) -> dict:
     t = lambda x, dt: torch.from_numpy(np.asarray(x)).to(device=device, dtype=dt)
     return dict(prev_output=t(spec["prev_output"], C128),
                 prev_pred_energy=t(spec["prev_pred_energy"], F64),
-                rng=t(spec["rng"], torch.int64), tail=t(tail, F64))
+                rng=t(spec["rng"], torch.int64), f_value_ema=t(spec["f_value_ema"], F64),
+                f_weighted_ema=t(spec["f_weighted_ema"], F64), tail=t(tail, F64))
 
 
 def controls(geo: Geometry, rate, semitones, tonality_hz):
@@ -392,18 +503,24 @@ def controls(geo: Geometry, rate, semitones, tonality_hz):
 def step(geo: Geometry, state: dict, audio, ends, ctl: dict, voices=None, rnd=_ident):
     """H hops of N streams.  audio [V, C, T], stream ``i`` reading track
     ``voices[i]`` (default: track i); ends [N, H] frame ends; ctl: rate,
-    semitones, tonality_hz, active [N] (float64 tensors).  Returns
+    semitones, tonality_hz, active [N] and, if given, formant_factor,
+    formant_compensation and formant_base [N] (float64 tensors).  Returns
     (state, emitted [N, C, H * interval]); an inactive stream keeps its
     state and emits silence."""
     n, h = ends.shape
     dev = audio.device
     voices = torch.arange(n, device=dev) if voices is None else voices
     tf, mult, limit = controls(geo, ctl["rate"], ctl["semitones"], ctl["tonality_hz"])
+    formant = None
+    if "formant_factor" in ctl:
+        formant = (ctl["formant_factor"], ctl["formant_compensation"], ctl["formant_base"])
+        if not bool(formant_active(mult, *formant[:2]).any()):
+            formant = None
     st, outs = state, []
     for i in range(h):
         e = ends[:, i:i + 1]
         specs = analyse(geo, audio, torch.cat([e, e - geo.interval], dim=1), voices, rnd)
-        st, out = hop(geo, st, specs[:, 0], specs[:, 1], tf, mult, limit, rnd)
+        st, out = hop(geo, st, specs[:, 0], specs[:, 1], tf, mult, limit, rnd, formant)
         outs.append(out)
     frames_ = synthesise(geo, torch.stack(outs, dim=2), rnd)              # [N, C, H, block]
     interval, block = geo.interval, geo.block
@@ -422,6 +539,7 @@ def step(geo: Geometry, state: dict, audio, ends, ctl: dict, voices=None, rnd=_i
 
 def state_parts(state: dict) -> dict:
     """What the carried state is compared by: the carried spectrum, the
-    overlap-add tail and the MINSTD states."""
+    overlap-add tail, the MINSTD states and the formant trackers."""
     return dict(state_spectrum=state["prev_output"], state_tail=state["tail"],
-                state_rng=state["rng"])
+                state_rng=state["rng"],
+                state_formant=torch.stack([state["f_value_ema"], state["f_weighted_ema"]], 1))

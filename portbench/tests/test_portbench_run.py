@@ -6,6 +6,7 @@ point refuses to run without a card."""
 from __future__ import annotations
 
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -185,8 +186,33 @@ def test_run_in_a_directory_of_the_benchmark_alone_exits_non_zero(tmp_path):
     assert res.stdout.strip() == ""
 
 
+# sha256 of repr((initial, turns of steps 1-64)) of each accepted mix at the
+# seed 2**40 + 3, each at its first cell's step length, as the harness drew
+# them before the choice distribution was added
+ACCEPTED_TRAFFIC = {
+    "s128h8": "ac9b7b5e45f934a85b2e848097a63f2203e65442d07a35c179d388dcf742c99c",
+    "s128h32": "fc848e31c9df9c228761424b4f28a81865ad4acf3a72c280c8138ad1f040adfa",
+    "s64h1": "b1861d65de82e06c18fa8a346b5fd80cf250b45bd00be62a8913764a3ce39c13",
+    "s64h4": "66aaccff1674c1e34f6496ed22869fee664e465414ba788270d42b941f35b175",
+}
+
+
 def test_traffic_is_the_same_for_a_seed_and_drawn_in_output_time():
     from portbench.core.traffic import Traffic
+
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    sums = {}
+    for w in bench["workloads"]:
+        if w["traffic"] in ACCEPTED_TRAFFIC and w["traffic"] not in sums:
+            cfg = json.loads((REPO / files[w["config"]]).read_text())
+            mix = json.loads((REPO / "portbench" / "traffic" / f"{w['traffic']}.json")
+                             .read_text())
+            t = Traffic(mix, 2**40 + 3, mix["hops_per_step"] * cfg["geometry"]["interval"]
+                        / cfg["sample_rate"], float(mix["track_sec"]))
+            drawn = repr((t.initial, [t.turns(k) for k in range(1, 65)]))
+            sums[w["traffic"]] = hashlib.sha256(drawn.encode()).hexdigest()
+    assert sums == ACCEPTED_TRAFFIC
 
     mix = json.loads((REPO / "portbench" / "traffic" / "s128h8.json").read_text())
     a = Traffic(mix, 2**40 + 3, 0.24, 30.0)
